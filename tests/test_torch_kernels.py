@@ -1,0 +1,178 @@
+"""The port's attention kernels against the JAX reference.
+
+On the CPU, ``repro_torch.kernels.ops`` takes the kernels' plain versions
+(``repro_torch.kernels.ref``); these tests hold them against the
+reference's oracles (``repro.kernels.ref``) and against the Pallas kernels
+run as the reference's own tests run them (``interpret=True``), on the
+parameter grids of ``tests/test_kernels.py``, at fp32 2e-5 and bf16
+2e-2 (prefill) / 3e-2 (decode). The CUDA kernels themselves are held
+against the plain versions on the card, in ``tests/test_torch_cuda.py``
+(``cuda`` marker) and ``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.decode_attention import flash_decode as pallas_decode
+from repro.kernels.flash_attention import flash_attention as pallas_attention
+from repro_torch.kernels import decode_attention as fd
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+
+TOLS = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
+        "flash_decode": {"float32": 2e-5, "bfloat16": 3e-2}}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same fp32 numpy values as a JAX and a torch tensor of dtype."""
+    return (jnp.asarray(a).astype(JDT[dtype]),
+            torch.from_numpy(a).to(TDT[dtype]))
+
+
+def _close(got: torch.Tensor, want, tol: float) -> None:
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def _qkv(seed, B, H, KVH, S, D, dtype):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, H, S, D), (B, KVH, S, D), (B, KVH, S, D))]
+    return [_pair(a, dtype) for a in arrs]
+
+
+# ------------------------------------------------------ flash attention
+
+
+@pytest.mark.parametrize("B,H,KVH,S,D,dtype", [
+    (1, 2, 2, 128, 32, "float32"),
+    (2, 4, 2, 256, 64, "float32"),
+    (1, 8, 2, 128, 64, "bfloat16"),
+    (2, 2, 1, 512, 16, "float32"),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_plain_matches_reference(B, H, KVH, S, D, dtype,
+                                                 causal):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(0, B, H, KVH, S, D, dtype)
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == TDT[dtype] and got.shape == (B, H, S, D)
+    tol = TOLS["flash_attention"][dtype]
+    _close(got, jref.attention_ref(jq, jk, jv, causal=causal), tol)
+    _close(got, pallas_attention(jq, jk, jv, causal=causal, block_q=64,
+                                 block_k=64), tol)
+
+
+@pytest.mark.parametrize("S,D,G,causal", [
+    (64, 16, 1, True), (128, 32, 2, False), (192, 64, 4, True),
+    (64, 64, 4, False), (192, 16, 2, True), (128, 32, 1, True),
+])
+def test_flash_attention_plain_gqa_grid(S, D, G, causal):
+    KVH = 2
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(S * D * G, 1, KVH * G, KVH, S, D,
+                                        "float32")
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    _close(got, pallas_attention(jq, jk, jv, causal=causal, block_q=64,
+                                 block_k=64), 2e-5)
+
+
+@pytest.mark.parametrize("S", [1, 37, 100])
+def test_flash_attention_plain_ragged_strided(S):
+    """Any S (no block multiple) and the model's transpose views of
+    [B,S,H,D] tensors; the reference oracle takes any S."""
+    rng = np.random.default_rng(S)
+    B, H, KVH, D = 2, 4, 2, 32
+    q = rng.standard_normal((B, S, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, KVH, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, KVH, D)).astype(np.float32)
+    tq, tk, tv = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, causal=True)
+    want = jref.attention_ref(*(jnp.asarray(a).swapaxes(1, 2)
+                                for a in (q, k, v)), causal=True)
+    _close(got, want, 2e-5)
+
+
+# --------------------------------------------------------- flash decode
+
+
+def _decode_inputs(seed, B, H, KVH, S, D, dtype):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, KVH, S, D)).astype(np.float32)
+    v = rng.standard_normal((B, KVH, S, D)).astype(np.float32)
+    return _pair(q, dtype), _pair(k, dtype), _pair(v, dtype)
+
+
+@pytest.mark.parametrize("B,H,KVH,S,D,dtype", [
+    (2, 4, 2, 256, 64, "float32"),
+    (1, 8, 4, 1024, 32, "float32"),
+    (3, 2, 2, 512, 64, "bfloat16"),
+])
+def test_flash_decode_plain_matches_reference(B, H, KVH, S, D, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = _decode_inputs(1, B, H, KVH, S, D, dtype)
+    lengths = np.asarray(([S // 2, S, 7] + [S] * B)[:B], np.int32)
+    got = ops.flash_decode(tq, tk, tv, torch.from_numpy(lengths))
+    assert got.dtype == TDT[dtype] and got.shape == (B, H, D)
+    tol = TOLS["flash_decode"][dtype]
+    jl = jnp.asarray(lengths)
+    _close(got, jref.decode_attention_ref(jq, jk, jv, jl), tol)
+    _close(got, pallas_decode(jq, jk, jv, jl, block_k=128), tol)
+
+
+@pytest.mark.parametrize("B,S,D,length", [
+    (1, 128, 32, 1), (2, 256, 64, 300), (3, 128, 64, 77), (2, 256, 32, 129),
+])
+def test_flash_decode_plain_lengths_grid(B, S, D, length):
+    length = min(length, S)
+    (jq, tq), (jk, tk), (jv, tv) = _decode_inputs(B * S + D + length, B, 4,
+                                                  2, S, D, "float32")
+    lengths = np.full((B,), length, np.int32)
+    got = ops.flash_decode(tq, tk, tv, torch.from_numpy(lengths))
+    _close(got, pallas_decode(jq, jk, jv, jnp.asarray(lengths), block_k=64),
+           2e-5)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+def test_flash_decode_plain_cache_view_ragged(G):
+    """The model cache [B,Smax,KVH,D] as a permute view, ragged lengths,
+    GQA group G; S is no block multiple (the reference oracle takes it)."""
+    rng = np.random.default_rng(40 + G)
+    B, Smax, KVH, D = 4, 75, 2, 32
+    q = rng.standard_normal((B, KVH * G, D)).astype(np.float32)
+    kc = rng.standard_normal((B, Smax, KVH, D)).astype(np.float32)
+    vc = rng.standard_normal((B, Smax, KVH, D)).astype(np.float32)
+    lengths = np.array([1, 30, 64, 75], np.int32)
+    got = ops.flash_decode(torch.from_numpy(q),
+                           torch.from_numpy(kc).permute(0, 2, 1, 3),
+                           torch.from_numpy(vc).permute(0, 2, 1, 3),
+                           torch.from_numpy(lengths))
+    want = jref.decode_attention_ref(
+        jnp.asarray(q), jnp.asarray(kc).swapaxes(1, 2),
+        jnp.asarray(vc).swapaxes(1, 2), jnp.asarray(lengths))
+    _close(got, want, 2e-5)
+
+
+# ------------------------------------------------------------- dispatch
+
+
+def test_cpu_dispatch_launches_no_kernel():
+    ops.reset_launch_counts()
+    (_, tq), (_, tk), (_, tv) = _qkv(3, 1, 2, 1, 16, 16, "float32")
+    ops.flash_attention(tq, tk, tv)
+    ops.flash_decode(tq[:, :, 0], tk, tv, torch.tensor([5], dtype=torch.int32))
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0}
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The CUDA wrappers never fall back: a CPU tensor is an error."""
+    (_, tq), (_, tk), (_, tv) = _qkv(4, 1, 2, 1, 16, 16, "float32")
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fa.flash_attention(tq, tk, tv)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fd.flash_decode(tq[:, :, 0], tk, tv,
+                        torch.tensor([5], dtype=torch.int32))
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0}

@@ -1,0 +1,148 @@
+"""The port's dense LM against the JAX reference model.
+
+Weights come from the reference's own ``init`` and are carried across by
+``repro_torch.bridge.params_from_jax``; prefill logits and 4 greedy decode
+steps must agree at 1e-4 in fp32, with equal greedy tokens."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_arch as jget_arch
+from repro.models.api import build_model as jbuild_model
+from repro.models import transformer as jtransformer
+from repro_torch.bridge import flatten, params_from_jax
+from repro_torch.configs import get_arch
+from repro_torch.models import transformer
+from repro_torch.models.api import build_model
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def flatten_jax(tree) -> dict:
+    """The reference's param pytree as a ``/``-joined dict of numpy."""
+    leaves = jax.tree_util.tree_leaves_with_path(tree)
+    return {"/".join(str(k.key) for k in path): np.asarray(leaf)
+            for path, leaf in leaves}
+
+
+def reference_and_port(arch: str, **overrides):
+    """(reference model, its params, port model, bridged params) of the
+    reduced config of ``arch`` with ``overrides`` applied to both."""
+    jcfg = dataclasses.replace(jget_arch(arch).reduced(), **overrides)
+    tcfg = dataclasses.replace(get_arch(arch).reduced(), **overrides)
+    jmodel = jbuild_model(jcfg)
+    jparams = jmodel.init(jax.random.key(0))
+    tmodel = build_model(tcfg, "cpu")
+    return (jmodel, jparams, tmodel,
+            params_from_jax(flatten_jax(jparams), "cpu"))
+
+
+def reference_greedy(jmodel, jparams, prompts: np.ndarray, steps: int):
+    """Prefill + ``steps`` greedy decode steps of the reference: the
+    logits of every step [steps+1, B, V] and the tokens [B, steps+1]."""
+    B, P = prompts.shape
+    toks = jnp.asarray(prompts, jnp.int32)
+    cache = jmodel.init_cache(jparams, {"tokens": toks}, B, P + steps)
+    logits, cache = jmodel.prefill(jparams, {"tokens": toks}, cache)
+    out, tok = [logits], jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+    toks_out = [tok]
+    lengths = jnp.full((B,), P, jnp.int32)
+    for _ in range(steps):
+        logits, cache = jmodel.decode_step(jparams, cache, tok, lengths)
+        out.append(logits)
+        tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+        toks_out.append(tok)
+        lengths = lengths + 1
+    return (np.stack([np.asarray(o) for o in out]),
+            np.concatenate([np.asarray(t) for t in toks_out], axis=1))
+
+
+def port_greedy(tmodel, tparams, prompts: np.ndarray, steps: int):
+    B, P = prompts.shape
+    toks = torch.from_numpy(prompts).long()
+    cache = tmodel.init_cache(tparams, {"tokens": toks}, B, P + steps)
+    logits, cache = tmodel.prefill(tparams, {"tokens": toks}, cache)
+    out, tok = [logits], logits.argmax(-1)[:, None]
+    toks_out = [tok]
+    lengths = torch.full((B,), P, dtype=torch.int32)
+    for _ in range(steps):
+        logits, cache = tmodel.decode_step(tparams, cache, tok, lengths)
+        out.append(logits)
+        tok = logits.argmax(-1)[:, None]
+        toks_out.append(tok)
+        lengths = lengths + 1
+    return (torch.stack(out).numpy(), torch.cat(toks_out, dim=1).numpy())
+
+
+CASES = {
+    "qwen-bias-tied": ("qwen1.5-0.5b", {}),
+    "chameleon-qknorm-untied": ("chameleon-34b", {}),
+    "qwen-gqa-g2": ("qwen1.5-0.5b", {"kv_heads": 2}),
+}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_prefill_and_greedy_decode_match_reference(case):
+    arch, over = CASES[case]
+    jmodel, jparams, tmodel, tparams = reference_and_port(arch, **over)
+    prompts = np.random.default_rng(7).integers(
+        0, tmodel.cfg.vocab, size=(2, 12))
+    want_logits, want_toks = reference_greedy(jmodel, jparams, prompts, 4)
+    got_logits, got_toks = port_greedy(tmodel, tparams, prompts, 4)
+    assert got_logits.dtype == np.float32
+    np.testing.assert_allclose(got_logits, want_logits, **TOL)
+    np.testing.assert_array_equal(got_toks, want_toks)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_full_forward_matches_reference(case):
+    """lm_forward against the reference's chunked-attention forward."""
+    arch, over = CASES[case]
+    jmodel, jparams, tmodel, tparams = reference_and_port(arch, **over)
+    toks = np.random.default_rng(8).integers(0, tmodel.cfg.vocab, (2, 40))
+    want, _ = jtransformer.lm_forward(jparams, jnp.asarray(toks, jnp.int32),
+                                      jmodel.cfg)
+    got = transformer.lm_forward(tparams, torch.from_numpy(toks).long(),
+                                 tmodel.cfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "chameleon-34b",
+                                  "starcoder2-15b"])
+def test_bridge_is_one_to_one(arch):
+    """Every reference key lands in the port under the same name and
+    shape, and the port's own init has exactly the same keys."""
+    jcfg = jget_arch(arch).reduced()
+    flat = flatten_jax(jbuild_model(jcfg).init(jax.random.key(1)))
+    bridged = flatten(params_from_jax(flat, "cpu"))
+    assert bridged.keys() == flat.keys()
+    for key, arr in flat.items():
+        assert tuple(bridged[key].shape) == arr.shape, key
+        np.testing.assert_array_equal(bridged[key].numpy(), arr)
+    own = build_model(get_arch(arch).reduced(), "cpu").init(
+        torch.Generator().manual_seed(0))
+    own_flat = flatten(own)
+    assert own_flat.keys() == flat.keys()
+    assert {k: tuple(v.shape) for k, v in own_flat.items()} == \
+        {k: a.shape for k, a in flat.items()}
+
+
+def test_bf16_bridge_keeps_values():
+    flat = {"w": np.asarray(jnp.asarray([[1.5, -2.25]], jnp.bfloat16))}
+    t = params_from_jax(flat, "cpu")["w"]
+    assert t.dtype == torch.bfloat16
+    assert t.float().tolist() == [[1.5, -2.25]]
+
+
+@pytest.mark.parametrize("arch,slice_", [
+    ("deepseek-v3-671b", "MLA and MoE"), ("grok-1-314b", "MLA and MoE"),
+    ("zamba2-2.7b", "Mamba2"),
+    ("rwkv6-3b", "RWKV6"), ("whisper-large-v3", "encoder-decoder")])
+def test_unported_families_raise(arch, slice_):
+    with pytest.raises(NotImplementedError, match=slice_):
+        build_model(get_arch(arch).reduced(), "cpu")
+
