@@ -7,13 +7,23 @@ CUDA toolkit:
 
 Phases, each ending in one line:
   1. the card: name and power limit (``nvidia-smi``), torch and CUDA versions;
-  2. the build: ``nvcc`` compiles every kernel of the serve path;
-  3. the kernels: each kernel against its plain PyTorch version on the card,
-     in fp32 (tolerance 2e-5, TF32 off) and bf16 (2e-2 prefill, 3e-2
-     decode), at the serving shapes of qwen1.5-0.5b and at a GQA shape of
-     starcoder2-15b's widths, with its time, the plain version's, one
-     PyTorch library call's (``scaled_dot_product_attention``, a yardstick
-     the port never calls) and the least time the card could take;
+  2. the build: ``nvcc`` compiles every kernel of the serve and
+     calibration paths, and ``cuobjdump`` gives chacha20's instruction mix;
+  3. the kernels: each kernel against its plain PyTorch version on the card.
+     The attention kernels in fp32 (tolerance 2e-5, TF32 off) and bf16
+     (2e-2 prefill, 3e-2 decode), at the serving shapes of qwen1.5-0.5b
+     and at a GQA shape of starcoder2-15b's widths, with one PyTorch
+     library call's time (``scaled_dot_product_attention``, a yardstick
+     the port never calls). ``chacha20`` bit-exact (0 mismatched words) on
+     the RFC 7539 vector, across the 2^32 counter wrap at a block count
+     that is no multiple of 256, at the calibration shapes (256 and 64
+     blocks) and on 64 MiB of keystream (1,048,576 blocks), which is
+     timed (no PyTorch call computes ChaCha20: no library time). Each
+     timed case prints its time, the plain version's and the least time
+     the card could take. The attention kernels are also checked in fp32
+     at every shape phase 6's calibration gives them (the kernel suite's
+     and the reduced model differential's, from the constants of
+     ``repro_torch.analysis.calibrate``);
   4. serving: qwen1.5-0.5b at its published width and depth through the
      engine (``repro_torch.launch.serve.main``), with the kernels' launch
      counters reset just before and read just after; then one prefill and
@@ -23,6 +33,14 @@ Phases, each ending in one line:
      greedy decode through the kernels against the same model with the
      kernels' plain versions swapped in, on the card; and the served bf16
      ``unembed`` against fp32 sums, to show its logits stay fp32;
+  6. calibration: ``repro_torch.analysis.calibrate.main`` on the card at
+     the full published configs of the five ported archs, with the launch
+     counters reset just before and read just after: all three kernels
+     must launch, each kernel and every arch's ``prefill`` must be tagged
+     heavy as in the reference's ``derived.json`` (``decode_step``'s tags
+     are printed beside the reference's), ``derived.json`` must be
+     unchanged, and the committed ``derived_cuda.json`` must equal the
+     run's kernel and workload entries (their differentials aside);
 then the ``kernels`` JSON line, the card line, and the result line.
 
 Any failed phase exits non-zero. Nothing runs on the CPU in place of the
@@ -38,12 +56,11 @@ import sys
 import time
 from pathlib import Path
 
-SRC = Path(__file__).resolve().parent / "src"
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
 ARCH = "qwen1.5-0.5b"
 SERVE = dict(requests=8, prompt=512, max_new=64, batch=4)
-HBM_BYTES_PER_S = 3.35e12                    # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"bfloat16": 989e12,            # dense tensor-core bf16
-              "float32": 67e12}              # fp32 outside the tensor cores
+CALIB_OUT = ROOT / "build" / "repro_torch" / "derived_cuda.json"
 TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
        "flash_decode": {"float32": 2e-5, "bfloat16": 3e-2}}
 KERNELS = {
@@ -53,7 +70,19 @@ KERNELS = {
     "flash_decode": {
         "source": "src/repro_torch/csrc/flash_decode.cu",
         "replaces": "src/repro/kernels/decode_attention.py:75"},
+    "chacha20": {
+        "source": "src/repro_torch/csrc/chacha20.cu",
+        "replaces": "src/repro/kernels/chacha20.py:89"},
 }
+# ChaCha20 keystream block 1 of RFC 7539 section 2.3.2 (key 00..1f,
+# nonce 000000090000004a00000000, counter 1), little-endian bytes
+RFC_BLOCK1 = bytes.fromhex(
+    "10f1e7e4d13b5915500fdd1fa32071c4c7d1f4c733c068030422aa9ac3d46c4e"
+    "d2826446079faa0914c2d705d98b02a2b5129cd1de164eb9cbd083e8a2503c4e")
+# 32-bit instructions the card issues for one ChaCha20 block: 10 double
+# rounds x 8 quarter rounds x (4 adds, 4 xors, 4 rotates as one SHF or
+# PRMT each) + 16 final adds (csrc/chacha20.cu)
+CHACHA20_INSTR_PER_BLOCK = 10 * 8 * 12 + 16
 
 
 class SmokeFailure(Exception):
@@ -69,28 +98,47 @@ def require(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+def machine():
+    """The H100's data-sheet rates, kept in one place: the port's
+    ``MachineModel`` (``repro_torch.analysis.regions``)."""
+    from repro_torch.analysis.regions import MachineModel
+    return MachineModel()
+
+
 # ----------------------------------------------------------------- timing
 
 
-def median_ms(fn, iters: int = 50, warmup: int = 5, flush=None) -> float:
-    """Median of ``iters`` single-call times from CUDA events, after
-    ``warmup`` calls. ``flush`` (a large tensor) is rewritten before each
-    call, outside the timed pair, so the call finds the L2 cache cold."""
+def median_ms(fn, iters: int = 50, warmup: int = 5, flush=None,
+              reps: int = 5) -> float:
+    """Time of one call from CUDA events, after ``warmup`` calls.
+
+    Without ``flush``: the median over ``reps`` runs of ``iters`` calls
+    queued back to back between one event pair, divided by ``iters``, so
+    the host's per-call work (argument checks, custom-op dispatch) overlaps
+    the device's and a call is timed by the device. With ``flush`` (a large
+    tensor, rewritten before each call outside the timed pair so the call
+    finds the L2 cache cold): the median of ``iters`` single-call pairs,
+    which also hold whatever host time the rewrite does not cover."""
     import torch
+
+    def event():
+        return torch.cuda.Event(enable_timing=True)
+
     for _ in range(warmup):
         fn()
     pairs = []
-    for _ in range(iters):
+    for _ in range(reps if flush is None else iters):
+        start, end = event(), event()
         if flush is not None:
             flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(iters if flush is None else 1):
+            fn()
         end.record()
         pairs.append((start, end))
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+    per_pair = iters if flush is None else 1
+    return statistics.median(s.elapsed_time(e) / per_pair for s, e in pairs)
 
 
 # ----------------------------------------------------------------- phases
@@ -105,14 +153,18 @@ def card_line() -> str:
     return out[0]
 
 
-def prefill_case(B, H, KVH, S, D, dtype, causal, gen):
+def prefill_case(B, H, KVH, S, D, dtype, causal, gen, contiguous=False):
     """q/k/v as transpose views of [B,S,*,D] tensors, as the model passes
+    them, or ``contiguous`` [B,*,S,D] tensors, as calibration passes
     them. Returns (args, kwargs, bytes, flops)."""
     import torch
-    q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
-    k = torch.randn(B, S, KVH, D, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(B, S, KVH, D, generator=gen, device="cuda").to(dtype)
-    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+
+    def make(heads):
+        t = torch.randn(B, S, heads, D, generator=gen, device="cuda")
+        t = t.to(dtype).transpose(1, 2)
+        return t.contiguous() if contiguous else t
+
+    q, k, v = make(H), make(KVH), make(KVH)
     item = q.element_size()
     nbytes = item * (2 * B * H * S * D + 2 * B * KVH * S * D)
     pairs = S * (S + 1) // 2 if causal else S * S
@@ -120,20 +172,25 @@ def prefill_case(B, H, KVH, S, D, dtype, causal, gen):
     return (q, k, v), {"causal": causal}, nbytes, flops
 
 
-def decode_case(B, H, KVH, S, D, dtype, lengths, gen):
-    """q [B,H,D] and the cache [B,S,KVH,D] as a permute view, with
-    ragged lengths. Returns (args, kwargs, bytes, flops)."""
+def decode_case(B, H, KVH, S, D, dtype, lengths, gen, contiguous=False):
+    """q [B,H,D] and the cache [B,S,KVH,D] as a permute view, as the
+    model's cache gives it, or ``contiguous`` [B,KVH,S,D], as calibration
+    passes it; with ragged lengths. Returns (args, kwargs, bytes, flops)."""
     import torch
+
+    def make():
+        t = torch.randn(B, S, KVH, D, generator=gen, device="cuda")
+        t = t.to(dtype).permute(0, 2, 1, 3)
+        return t.contiguous() if contiguous else t
+
     q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
-    kc = torch.randn(B, S, KVH, D, generator=gen, device="cuda").to(dtype)
-    vc = torch.randn(B, S, KVH, D, generator=gen, device="cuda").to(dtype)
+    kc, vc = make(), make()
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     item = q.element_size()
     n = sum(min(x, S) for x in lengths)
     nbytes = item * (2 * B * H * D + 2 * n * KVH * D) + 4 * B
     flops = 4 * H * D * n
-    return ((q, kc.permute(0, 2, 1, 3), vc.permute(0, 2, 1, 3), lens), {},
-            nbytes, flops)
+    return (q, kc, vc, lens), {}, nbytes, flops
 
 
 def library_call(name, args, kwargs):
@@ -182,8 +239,11 @@ def check_kernel(name, case, label, dtype_name, timed):
                                     flush=flush)
         res["library_ms"] = median_ms(library_call(name, args, kwargs),
                                       flush=flush)
-        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        by_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+        m = machine()
+        peak = {"bfloat16": m.tensor_flops_per_s,
+                "float32": m.vector_flops_per_s}[dtype_name]
+        by_bytes = nbytes / m.hbm_bytes_per_s * 1e3
+        by_ops = flops / peak * 1e3
         res["bound_ms"] = max(by_bytes, by_ops)
         res["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
     say(f"  {name} {label} {dtype_name}: max_abs_err={err:.3g} (tol {tol})"
@@ -194,10 +254,145 @@ def check_kernel(name, case, label, dtype_name, timed):
     return res
 
 
+def u32_words(n, gen):
+    """n random u32 words on the card, made through their int32 bits."""
+    import torch
+    return torch.randint(-2**31, 2**31, (n,), dtype=torch.int32,
+                         generator=gen, device="cuda").view(torch.uint32)
+
+
+def check_chacha20(label, key, nonce, counter0, n_blocks, timed=False):
+    """The kernel against its plain version, bit-exact; optionally timed
+    (the plain version over fewer launches: it runs about 2,500 int64
+    kernels a call)."""
+    import torch
+    from repro_torch.kernels import chacha20, ref
+    got = chacha20.keystream(key, nonce, counter0, n_blocks)
+    want = ref.chacha20_keystream_ref(key, nonce, counter0, n_blocks)
+    torch.cuda.synchronize()
+    require(got.shape == want.shape == (n_blocks, 16)
+            and got.dtype == want.dtype == torch.uint32,
+            f"chacha20 {label}: {tuple(got.shape)} {got.dtype} vs plain "
+            f"{tuple(want.shape)} {want.dtype}")
+    bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    err = int((ref.u32_to_i64(got) - ref.u32_to_i64(want)).abs().max())
+    res = {"shape": label, "dtype": "uint32", "max_abs_err": err,
+           "mismatched_words": bad, "tol": 0, "ok": bad == 0}
+    if timed:
+        m = machine()
+        res["ms"] = median_ms(
+            lambda: chacha20.keystream(key, nonce, counter0, n_blocks))
+        res["plain_ms"] = median_ms(
+            lambda: ref.chacha20_keystream_ref(key, nonce, counter0,
+                                               n_blocks), iters=5, warmup=1,
+            reps=3)
+        res["library_ms"] = None
+        nbytes = 4 * (8 + 3) + 64 * n_blocks
+        by_bytes = nbytes / m.hbm_bytes_per_s * 1e3
+        by_ops = CHACHA20_INSTR_PER_BLOCK * n_blocks / m.lane_ops_per_s * 1e3
+        res["bound_ms"] = max(by_bytes, by_ops)
+        res["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+    say(f"  chacha20 {label}: {bad} mismatched words, max_abs_err={err}"
+        + (f" ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+           f"library_ms=none bound_ms={res['bound_ms']:.4f} "
+           f"({res['bound_by']}: {CHACHA20_INSTR_PER_BLOCK} 32-bit "
+           f"instructions a block at {m.lane_ops_per_s:.4g}/s, "
+           f"{nbytes} bytes at {m.hbm_bytes_per_s:.4g} B/s)"
+           if timed else "")
+        + ("" if res["ok"] else "  MISMATCH"))
+    return res
+
+
+def chacha20_checks():
+    import torch
+    from repro_torch.kernels import chacha20
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rfc_key = torch.frombuffer(bytearray(range(32)), dtype=torch.int32)
+    rfc_nonce = torch.frombuffer(
+        bytearray.fromhex("000000090000004a00000000"), dtype=torch.int32)
+    rfc_key, rfc_nonce = (t.to("cuda").view(torch.uint32)
+                          for t in (rfc_key, rfc_nonce))
+    rfc = check_chacha20("RFC 7539 2.3.2, counter 1, 4 blocks", rfc_key,
+                         rfc_nonce, 1, 4)
+    block1 = chacha20.keystream(rfc_key, rfc_nonce, 1, 1).view(torch.int32)
+    same = block1.cpu().numpy().astype("<i4").tobytes() == RFC_BLOCK1
+    rfc["ok"] = rfc["ok"] and same
+    say(f"  chacha20 RFC block 1 equals the RFC's bytes: {same}")
+    key, nonce = u32_words(8, gen), u32_words(3, gen)
+    return [rfc] + [
+        check_chacha20(label, key, nonce, ctr, n, timed)
+        for label, ctr, n, timed in (
+            ("counter 2^32-3, 1000 blocks (wrap, tail)", 2**32 - 3, 1000,
+             False),
+            ("calibration 256 blocks", 1, 256, False),
+            ("calibration 64 blocks", 1, 64, False),
+            ("64 MiB, 1048576 blocks", 7, 1 << 20, True))]
+
+
+def chacha20_sass() -> str:
+    """Instruction mix of the built chacha20 kernel from ``cuobjdump``,
+    beside the count its bound assumes. The kernel has no loop left after
+    unrolling, so each instruction runs once a block."""
+    import collections
+    import re
+
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return "not measured (no cuobjdump)"
+    sass = subprocess.run([str(tool), "-sass", str(build._so_path(
+        "chacha20"))], capture_output=True, text=True, timeout=120,
+        check=True).stdout
+    ops = collections.Counter(
+        m.group(1).split(".")[0] for m in re.finditer(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9.]*)", sass))
+    ops.pop("NOP", None)
+    top = ", ".join(f"{k} {v}" for k, v in ops.most_common(8))
+    return (f"{sum(ops.values())} instructions ({top}); the bound counts "
+            f"{CHACHA20_INSTR_PER_BLOCK}")
+
+
+def calibration_shape_checks(gen):
+    """The attention kernels at the shapes, layouts and dtypes that phase
+    6's calibration gives them (constants of
+    ``repro_torch.analysis.calibrate``), on random data: the kernel
+    suite's timelines and differential, contiguous fp32, and the reduced
+    configs' prefills of the model differential, as the model passes
+    them."""
+    import torch
+    from repro_torch.analysis import calibrate as cal
+    from repro_torch.configs import get_arch
+    checks = {"flash_attention": [], "flash_decode": []}
+    for what, (B, H, S, D) in (("timeline", cal.TIMELINE_ATTENTION_SHAPE),
+                               ("differential", cal.DIFF_ATTENTION_SHAPE)):
+        checks["flash_attention"].append(check_kernel(
+            "flash_attention", prefill_case(B, H, H, S, D, torch.float32,
+                                            True, gen, contiguous=True),
+            f"calibration {what} B{B} H{H} S{S} D{D} causal", "float32",
+            False))
+    B, H, S, D = cal.TIMELINE_DECODE_SHAPE
+    checks["flash_decode"].append(check_kernel(
+        "flash_decode", decode_case(B, H, H, S, D, torch.float32, [S] * B,
+                                    gen, contiguous=True),
+        f"calibration timeline B{B} H{H} S{S} D{D} len{S}", "float32",
+        False))
+    for arch in cal.DIFFERENTIAL_ARCHS:
+        cfg = get_arch(arch).reduced()
+        H, KVH, D = cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim
+        dname = cfg.compute_dtype
+        checks["flash_attention"].append(check_kernel(
+            "flash_attention", prefill_case(
+                1, H, KVH, cal.DIFF_PROMPT, D, getattr(torch, dname), True,
+                gen), f"calibration {arch} reduced prefill B1 H{H} KVH{KVH} "
+            f"S{cal.DIFF_PROMPT} D{D} causal", dname, False))
+    return checks
+
+
 def kernel_phase():
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
-    results = {"flash_attention": [], "flash_decode": []}
+    results = {"flash_attention": [], "flash_decode": [],
+               "chacha20": chacha20_checks()}
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
         timed = True
@@ -222,6 +417,8 @@ def kernel_phase():
                          "gqa B4 H48 KVH4 S576 D128 len{1,100,511,576}",
                          dname, timed),
         ]
+    for name, checks in calibration_shape_checks(gen).items():
+        results[name] += checks
     bad = [(n, r["shape"], r["dtype"]) for n, rs in results.items()
            for r in rs if not r["ok"]]
     require(not bad, f"kernels disagree with their plain versions: {bad}")
@@ -399,6 +596,67 @@ def unembed_phase(rows: int = 4, tol: float = 1e-3):
             "unembed logits are not fp32-accurate")
 
 
+def calibration_phase():
+    """``python -m repro_torch.analysis.calibrate`` on the card, through its
+    ``main``: kernel timelines and differentials launch the three kernels,
+    the five ported archs are analysed at their published configs on the
+    meta device. Returns the launches of that run."""
+    import hashlib
+
+    from repro_torch.analysis import derived
+    from repro_torch.analysis.calibrate import DERIVED_CUDA_PATH
+    from repro_torch.analysis.calibrate import main as calibrate_main
+    from repro_torch.analysis.calibrate import ported_archs
+    from repro_torch.kernels import ops
+
+    def digest():
+        return hashlib.sha256(derived.DERIVED_PATH.read_bytes()).hexdigest()
+
+    before = digest()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = calibrate_main(["--out", str(CALIB_OUT)])
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    say(f"  calibration wall {wall:.1f}s, exit {rc}, launches {launches}")
+    require(rc == 0, f"calibration exited {rc}")
+    for name in KERNELS:
+        require(launches[name] >= 1,
+                f"{name} launched {launches[name]} times in calibration")
+    data = json.loads(CALIB_OUT.read_text())
+    ref = json.loads(derived.DERIVED_PATH.read_text())
+    ported, _ = ported_archs()
+    require(sorted(data["workloads"]) == sorted(ported),
+            f"calibrated {sorted(data['workloads'])}, expected {ported}")
+    for name in KERNELS:
+        tags = data["kernels"][name]["tags"]
+        require(name in tags and name in ref["kernels"][name]["tags"],
+                f"kernel {name} tags {tags} (reference "
+                f"{ref['kernels'][name]['tags']})")
+    for arch, w in sorted(data["workloads"].items()):
+        pre, dec = w["prefill"], w["decode_step"]
+        heavy = [dec["est_us"] * dec["heavy_share"],
+                 pre["est_us"] * pre["heavy_share"]]
+        say(f"  {arch}: tags {w['tags']} (reference "
+            f"{ref['workloads'][arch]['tags']}); decode/prefill heavy time "
+            f"{heavy[0]:.1f}/{heavy[1]:.1f} us = {heavy[0] / heavy[1]:.4f} "
+            "(tag_heavy's rel_duration is 0.10)")
+        require("prefill" in w["tags"]
+                and "prefill" in ref["workloads"][arch]["tags"],
+                f"{arch}: prefill not tagged heavy ({w['tags']})")
+    require(digest() == before, "derived.json changed during calibration")
+    committed = json.loads(DERIVED_CUDA_PATH.read_text())
+    stale = [f"{part}/{name}" for part in ("kernels", "workloads")
+             for name, entry in committed[part].items()
+             if {k: v for k, v in entry.items() if k != "differential"}
+             != {k: v for k, v in data[part][name].items()
+                 if k != "differential"}]
+    say(f"  the committed derived_cuda.json equals this run's kernels and "
+        f"workloads (differentials aside): {not stale}")
+    require(not stale, f"derived_cuda.json is stale for {stale}")
+    return launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("[chip_smoke] FAIL: src/repro_torch not found; run from the "
@@ -423,6 +681,8 @@ def main() -> int:
         secs = build.build(KERNELS)
         say(f"phase 2 build: {len(KERNELS)} kernels with nvcc in "
             f"{secs:.1f}s ({' '.join(build.NVCC_FLAGS)})")
+        say(f"  chacha20 SASS (one block a thread, fully unrolled): "
+            f"{chacha20_sass()}")
 
         say("phase 3 kernels against their plain versions:")
         results = kernel_phase()
@@ -442,6 +702,11 @@ def main() -> int:
         say("phase 5 end to end against the plain path:")
         end_to_end_phase()
         unembed_phase()
+
+        say("phase 6 calibration on the card "
+            "(repro_torch.analysis.calibrate):")
+        calib_launches = calibration_phase()
+        say("phase 6 calibration: all kernels launched and tagged")
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -449,10 +714,16 @@ def main() -> int:
     line = []
     for name, meta in KERNELS.items():
         main_case = next(r for r in results[name]
-                         if r["dtype"] == "bfloat16" and "ms" in r)
+                         if r["dtype"] in ("bfloat16", "uint32")
+                         and "ms" in r)
+        # each kernel's launches on its own path: serving for attention,
+        # calibration for chacha20 (serving never runs it)
+        path_launches = calib_launches if name == "chacha20" else launches
         line.append({
             "name": name, "route": "cuda", **meta,
-            "launches": launches[name],
+            "launches": path_launches[name],
+            "launches_by_path": {"serve": launches[name],
+                                 "calibrate": calib_launches[name]},
             "max_abs_err": main_case["max_abs_err"],
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],

@@ -1,2 +1,3 @@
-"""Attention kernels of the port: hand-written CUDA for Hopper, their plain
-PyTorch versions, the build, and the device dispatchers (``ops``)."""
+"""Kernels of the port: hand-written CUDA for Hopper (attention and
+ChaCha20), their plain PyTorch versions, the build, the custom ops
+(``library``) and the dispatchers (``ops``)."""

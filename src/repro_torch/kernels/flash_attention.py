@@ -6,8 +6,8 @@ for Hopper in ``csrc/flash_attention.cu`` (the source's header says how
 it maps the Pallas kernel onto the card). This wrapper validates the
 operands, allocates the output, launches on PyTorch's current stream and
 counts the launch. It runs only on CUDA tensors; the plain version is
-``repro_torch.kernels.ref.attention_ref``, and ``kernels.ops`` picks
-between the two by the tensors' device.
+``repro_torch.kernels.ref.attention_ref``, and the custom op in
+``kernels.library`` picks between the two by the tensors' device.
 """
 from __future__ import annotations
 

@@ -1,35 +1,56 @@
-"""Dispatchers for the port's attention kernels.
+"""Dispatchers for the port's kernels (port of ``repro.kernels.ops``).
 
-For CUDA tensors each dispatcher launches the hand-written Hopper kernel
-(or raises); for CPU tensors it calls the kernel's plain PyTorch version
-in ``kernels.ref``. The choice is made by the device of the tensors the
-caller passes, never by catching a failure.
+Each dispatcher calls its kernel's custom op (``kernels.library``): on
+CUDA tensors the dispatcher of PyTorch launches the hand-written Hopper
+kernel (or raises), on CPU tensors it runs the kernel's plain PyTorch
+version in ``kernels.ref``, and on meta tensors it only allocates the
+output. The choice is made by the tensors' dispatch keys, never by
+catching a failure.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import chacha20 as _cc
 from repro_torch.kernels import decode_attention as _fd
 from repro_torch.kernels import flash_attention as _fa
-from repro_torch.kernels import ref
+from repro_torch.kernels import library
 
-KERNEL_MODULES = {"flash_attention": _fa, "flash_decode": _fd}
+KERNEL_MODULES = {"flash_attention": _fa, "flash_decode": _fd,
+                  "chacha20": _cc}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q [B,H,S,D], k/v [B,KVH,S,D] -> [B,H,S,D]."""
-    if q.device.type == "cpu":
-        return ref.attention_ref(q, k, v, causal=causal)
-    return _fa.flash_attention(q, k, v, causal=causal)
+    return library.flash_attention(q, k, v, causal)
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  lengths: torch.Tensor) -> torch.Tensor:
     """q [B,H,D], k/v [B,KVH,S,D], lengths [B] -> [B,H,D]."""
-    if q.device.type == "cpu":
-        return ref.decode_attention_ref(q, k, v, lengths)
-    return _fd.flash_decode(q, k, v, lengths)
+    return library.flash_decode(q, k, v, lengths)
+
+
+def chacha20_keystream(key: torch.Tensor, nonce: torch.Tensor, counter0: int,
+                       n_blocks: int) -> torch.Tensor:
+    """key [8] u32, nonce [3] u32, counter0 (any int, taken mod 2^32) ->
+    [n_blocks, 16] u32 keystream."""
+    return library.chacha20_keystream(key, nonce, int(counter0) & 0xFFFFFFFF,
+                                      int(n_blocks))
+
+
+def chacha20_encrypt(data_u32: torch.Tensor, key: torch.Tensor,
+                     nonce: torch.Tensor, counter0: int = 1) -> torch.Tensor:
+    """XOR data [n_blocks, 16] u32 with the keystream from ``counter0``.
+
+    Any block count: the kernel masks its own tail, so the reference's
+    search for a tile that divides n_blocks has no counterpart. The XOR
+    runs on the int32 views, which hold the same bits (torch has no u32
+    arithmetic)."""
+    ks = chacha20_keystream(key, nonce, counter0, data_u32.shape[0])
+    return (data_u32.view(torch.int32) ^ ks.view(torch.int32)).view(
+        torch.uint32)
 
 
 def launch_counts() -> dict:
@@ -42,5 +63,5 @@ def reset_launch_counts() -> None:
         mod.launches = 0
 
 
-__all__ = ["flash_attention", "flash_decode", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["chacha20_encrypt", "chacha20_keystream", "flash_attention",
+           "flash_decode", "launch_counts", "reset_launch_counts"]

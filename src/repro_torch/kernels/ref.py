@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the port's kernels (port of ``repro.kernels.ref``).
 
-Both run in fp32 math and cast the result to ``q.dtype``. The CPU path of
-``repro_torch.kernels.ops`` calls them, and the chip checks hold each CUDA
-kernel against them on the same inputs.
+The attention versions run in fp32 math and cast the result to
+``q.dtype``; the ChaCha20 version is bit-exact 32-bit integer arithmetic.
+The ``"cpu"`` registrations of the port's custom ops
+(``repro_torch.kernels.library``) call them, and the chip checks hold each
+CUDA kernel against them on the same inputs.
 """
 from __future__ import annotations
 
@@ -11,6 +13,64 @@ import math
 import torch
 
 NEG_INF = -1e30
+
+# ------------------------------------------------------------- chacha20
+
+_CHACHA_CONSTANTS = (0x61707865, 0x3320646e, 0x79622d32, 0x6b206574)
+# quarter-round schedule: four columns, then four diagonals
+_QR = [(0, 4, 8, 12), (1, 5, 9, 13), (2, 6, 10, 14), (3, 7, 11, 15),
+       (0, 5, 10, 15), (1, 6, 11, 12), (2, 7, 8, 13), (3, 4, 9, 14)]
+_MASK = 0xFFFFFFFF
+
+
+def _rotl(x: torch.Tensor, n: int) -> torch.Tensor:
+    return ((x << n) | (x >> (32 - n))) & _MASK
+
+
+def u32_to_i64(t: torch.Tensor) -> torch.Tensor:
+    """u32 words (or any integer tensor) as int64 values in [0, 2^32)."""
+    if t.dtype == torch.uint32:
+        t = t.view(torch.int32)
+    return t.to(torch.int64) & _MASK
+
+
+def i64_to_u32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) as u32 words, through their int32 bits."""
+    return (x - ((x >> 31) << 32)).to(torch.int32).view(torch.uint32)
+
+
+def chacha20_keystream_ref(key: torch.Tensor, nonce: torch.Tensor,
+                           counter0: int, n_blocks: int) -> torch.Tensor:
+    """RFC 7539 ChaCha20 keystream: [n_blocks, 16] u32, row i the 64-byte
+    block for counter ``counter0 + i`` (mod 2^32).
+
+    key [8] and nonce [3] are little-endian u32 words. torch has no u32
+    arithmetic, so the state is int64 masked to 32 bits after every add
+    and rotate."""
+    dev = key.device
+    k, n = u32_to_i64(key), u32_to_i64(nonce)
+    counters = (int(counter0) + torch.arange(
+        n_blocks, dtype=torch.int64, device=dev)) & _MASK
+    init = ([torch.full((n_blocks,), c, dtype=torch.int64, device=dev)
+             for c in _CHACHA_CONSTANTS]
+            + [k[i].expand(n_blocks) for i in range(8)] + [counters]
+            + [n[i].expand(n_blocks) for i in range(3)])
+    x = list(init)
+    for _ in range(10):
+        for a, b, c, d in _QR:
+            x[a] = (x[a] + x[b]) & _MASK
+            x[d] = _rotl(x[d] ^ x[a], 16)
+            x[c] = (x[c] + x[d]) & _MASK
+            x[b] = _rotl(x[b] ^ x[c], 12)
+            x[a] = (x[a] + x[b]) & _MASK
+            x[d] = _rotl(x[d] ^ x[a], 8)
+            x[c] = (x[c] + x[d]) & _MASK
+            x[b] = _rotl(x[b] ^ x[c], 7)
+    out = torch.stack([(xi + si) & _MASK for xi, si in zip(x, init)], dim=1)
+    return i64_to_u32(out)
+
+
+# ------------------------------------------------------- attention
 
 
 def attention_ref(q, k, v, *, causal: bool, scale=None) -> torch.Tensor:

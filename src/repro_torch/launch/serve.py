@@ -18,8 +18,10 @@ raises when no GPU is present). ``--reduced --device cpu`` serves the
 reference's CPU-sized config on the CPU, with the kernels' plain versions.
 ``--mode loop`` keeps the plain batched loop (no scheduler) for
 comparison. The reference's ``--mode cluster`` and ``--workload`` come
-with a later slice of the port, as do the region timelines of the
-reference's ``identify_heavy_phase``.
+with a later slice of the port. Heavy tags come from the reference's
+calibration artifact (``analysis/derived.json``); the port's own
+calibration (``python -m repro_torch.analysis.calibrate``) writes
+``derived_cuda.json`` beside it and serving does not read that yet.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.analysis import derived
 from repro_torch.configs import get_arch
 from repro_torch.models.api import build_model
@@ -39,16 +42,6 @@ from repro_torch.sched.freq import ENGINE_FREQ_MS
 
 DEFAULT_HEAVY = ["prefill"]
 ENTRYPOINTS = ("prefill", "decode_step")
-
-
-def resolve_device(name: str) -> torch.device:
-    """The device to serve on; CUDA must be present when asked for."""
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {name}: no CUDA device is available. The port "
-            "serves on the GPU; pass --device cpu to run on the CPU.")
-    return dev
 
 
 def _sync(device: torch.device) -> None:
@@ -151,8 +144,9 @@ def engine_freq_config(arch: str):
 
 
 def _print_identification(tags, src) -> str:
-    print("[serve] region timelines: not ported yet (analysis slice); "
-          "tags come from the calibration artifact")
+    print("[serve] region timelines: see python -m "
+          "repro_torch.analysis.calibrate; tags come from the calibration "
+          "artifact")
     print(f"[serve] analyzer-derived heavy tags ({src}): {tags}")
     return tags[0] if tags else DEFAULT_HEAVY[0]
 

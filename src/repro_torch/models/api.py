@@ -4,8 +4,12 @@ interface (``repro.models.api``).
 ``build_model(cfg, device)`` returns a ``Model`` whose ``init``,
 ``init_cache``, ``prefill`` and ``decode_step`` take the same arguments as
 the reference's, with a ``torch.Generator`` in place of a JAX key and
-tensors in place of arrays. This slice builds the ``dense`` and ``vlm``
-(early-fusion, token-stream) families; the others raise.
+tensors in place of arrays. ``abstract_params()`` and ``input_specs(shape)``
+give parameters and inputs on the ``meta`` device, where nothing is
+allocated: the counterpart of the reference's ``jax.eval_shape`` and
+``ShapeDtypeStruct``s, which the static analysis traces at full width.
+This port builds the ``dense`` and ``vlm`` (early-fusion, token-stream)
+families; the others raise.
 """
 from __future__ import annotations
 
@@ -23,10 +27,31 @@ class Model:
     cfg: ArchConfig
     device: torch.device
     family: str
-    init: Callable                   # (gen) -> params
+    init_on: Callable                # (gen, device) -> params
     init_cache: Callable             # (params, batch, B, max_seq) -> cache
     prefill: Callable                # (params, batch, cache) -> (logits, cache)
     decode_step: Callable            # (params, cache, tokens, lengths) -> ...
+
+    def init(self, gen: torch.Generator) -> dict:
+        """Random parameters on the model's device, from ``gen``."""
+        return self.init_on(gen, self.device)
+
+    def abstract_params(self) -> dict:
+        """The parameter dict on the meta device: shapes and dtypes only."""
+        return self.init_on(None, torch.device("meta"))
+
+    def input_specs(self, shape) -> dict:
+        """Meta input tensors for a prefill or decode ``ShapeConfig``-like
+        ``shape`` (``seq_len``, ``global_batch``, ``kind``): ``tokens``
+        [B,S] for prefill; ``tokens`` [B,1] and ``lengths`` [B] for
+        decode, one new token against a ``seq_len`` cache. The reference's
+        PartitionSpecs have no counterpart until distribution is ported."""
+        B, S = shape.global_batch, shape.seq_len
+        meta = dict(dtype=torch.int32, device="meta")
+        if shape.kind == "decode":
+            return {"tokens": torch.empty((B, 1), **meta),
+                    "lengths": torch.empty((B,), **meta)}
+        return {"tokens": torch.empty((B, S), **meta)}
 
 
 def _build_lm(cfg: ArchConfig, device: torch.device) -> Model:
@@ -40,7 +65,7 @@ def _build_lm(cfg: ArchConfig, device: torch.device) -> Model:
         return transformer.lm_decode_step(params, cache, tokens, lengths, cfg)
 
     return Model(cfg=cfg, device=device, family=cfg.family,
-                 init=lambda gen: transformer.lm_init(gen, cfg, device),
+                 init_on=lambda gen, dev: transformer.lm_init(gen, cfg, dev),
                  init_cache=init_cache, prefill=prefill,
                  decode_step=decode_step)
 

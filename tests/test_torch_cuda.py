@@ -44,3 +44,21 @@ def test_cuda_kernels_match_plain(dtype):
         torch.testing.assert_close(ops.flash_decode(*args).float(),
                                    ref.decode_attention_ref(*args).float(),
                                    rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_chacha20_matches_plain_bit_exact():
+    """Bit-exact against the plain version, across the 2^32 counter wrap
+    and at block counts that are no multiple of the 256-thread block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    key, nonce = (torch.randint(-2**31, 2**31, (n,), dtype=torch.int32,
+                                generator=gen, device="cuda")
+                  .view(torch.uint32) for n in (8, 3))
+    for counter0, n_blocks in [(0, 1), (1, 256), (2**32 - 3, 1000),
+                               (12345, 4097)]:
+        got = ops.chacha20_keystream(key, nonce, counter0, n_blocks)
+        want = ref.chacha20_keystream_ref(key, nonce, counter0, n_blocks)
+        assert got.shape == (n_blocks, 16) and got.dtype == torch.uint32
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))

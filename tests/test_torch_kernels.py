@@ -17,6 +17,7 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import flash_decode as pallas_decode
 from repro.kernels.flash_attention import flash_attention as pallas_attention
+from repro_torch.kernels import chacha20 as cc
 from repro_torch.kernels import decode_attention as fd
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
@@ -159,12 +160,17 @@ def test_flash_decode_plain_cache_view_ragged(G):
 # ------------------------------------------------------------- dispatch
 
 
+NO_LAUNCHES = {"flash_attention": 0, "flash_decode": 0, "chacha20": 0}
+
+
 def test_cpu_dispatch_launches_no_kernel():
     ops.reset_launch_counts()
     (_, tq), (_, tk), (_, tv) = _qkv(3, 1, 2, 1, 16, 16, "float32")
     ops.flash_attention(tq, tk, tv)
     ops.flash_decode(tq[:, :, 0], tk, tv, torch.tensor([5], dtype=torch.int32))
-    assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0}
+    ops.chacha20_keystream(torch.zeros(8, dtype=torch.uint32),
+                           torch.zeros(3, dtype=torch.uint32), 1, 4)
+    assert ops.launch_counts() == NO_LAUNCHES
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -175,4 +181,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors only"):
         fd.flash_decode(tq[:, :, 0], tk, tv,
                         torch.tensor([5], dtype=torch.int32))
-    assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0}
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        cc.keystream(torch.zeros(8, dtype=torch.uint32),
+                     torch.zeros(3, dtype=torch.uint32), 1, 4)
+    assert ops.launch_counts() == NO_LAUNCHES
