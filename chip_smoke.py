@@ -8,7 +8,12 @@ CUDA toolkit:
 Phases, each ending in one line:
   1. the card: name and power limit (``nvidia-smi``), torch and CUDA versions;
   2. the build: ``nvcc`` compiles every kernel of the serve and
-     calibration paths, and ``cuobjdump`` gives chacha20's instruction mix;
+     calibration paths; ``cuobjdump`` gives
+     chacha20's instruction mix and the bf16 ``flash_attention``'s
+     tensor-core instructions (``HGMMA``), ``ptxas -v`` the registers,
+     spills and static shared memory of each bf16 attention kernel, and
+     the decode grid at the serving shape is printed with its launches a
+     call;
   3. the kernels: each kernel against its plain PyTorch version on the card.
      The attention kernels in fp32 (tolerance 2e-5, TF32 off) and bf16
      (2e-2 prefill, 3e-2 decode), at the serving shapes of qwen1.5-0.5b
@@ -20,7 +25,11 @@ Phases, each ending in one line:
      blocks) and on 64 MiB of keystream (1,048,576 blocks), which is
      timed (no PyTorch call computes ChaCha20: no library time). Each
      timed case prints its time, the plain version's and the least time
-     the card could take. The attention kernels are also checked in fp32
+     the card could take, all device-only (``device_ms``: 50 calls queued
+     behind a spin kernel, so the host's per-call work is hidden); decode
+     rotates over copies of its inputs that exceed the 50 MB L2, so every
+     call finds its cache cold, and also prints the older flushed
+     single-pair time. The attention kernels are also checked in fp32
      at every shape phase 6's calibration gives them (the kernel suite's
      and the reduced model differential's, from the constants of
      ``repro_torch.analysis.calibrate``);
@@ -50,6 +59,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -61,6 +71,9 @@ SRC = ROOT / "src"
 ARCH = "qwen1.5-0.5b"
 SERVE = dict(requests=8, prompt=512, max_new=64, batch=4)
 CALIB_OUT = ROOT / "build" / "repro_torch" / "derived_cuda.json"
+# decode timings rotate over copies of their inputs that together exceed
+# the H100's 50 MB L2 cache
+ROTATE_BYTES = 75e6
 TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
        "flash_decode": {"float32": 2e-5, "bfloat16": 3e-2}}
 KERNELS = {
@@ -108,37 +121,71 @@ def machine():
 # ----------------------------------------------------------------- timing
 
 
-def median_ms(fn, iters: int = 50, warmup: int = 5, flush=None,
-              reps: int = 5) -> float:
-    """Time of one call from CUDA events, after ``warmup`` calls.
-
-    Without ``flush``: the median over ``reps`` runs of ``iters`` calls
-    queued back to back between one event pair, divided by ``iters``, so
-    the host's per-call work (argument checks, custom-op dispatch) overlaps
-    the device's and a call is timed by the device. With ``flush`` (a large
-    tensor, rewritten before each call outside the timed pair so the call
-    finds the L2 cache cold): the median of ``iters`` single-call pairs,
-    which also hold whatever host time the rewrite does not cover."""
+def flushed_ms(fn, iters: int = 50, warmup: int = 5, flush=None) -> float:
+    """Time of one call from CUDA events: the median of ``iters``
+    single-call event pairs, with ``flush`` (a large tensor) rewritten
+    before each pair outside it so that the call finds the L2 cache cold.
+    A single pair also holds whatever of the host's per-call work the
+    rewrite does not cover; kept for continuity with PERF.md's history."""
     import torch
-
-    def event():
-        return torch.cuda.Event(enable_timing=True)
-
     for _ in range(warmup):
         fn()
     pairs = []
-    for _ in range(reps if flush is None else iters):
-        start, end = event(), event()
-        if flush is not None:
-            flush.zero_()
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        flush.zero_()
         start.record()
-        for _ in range(iters if flush is None else 1):
-            fn()
+        fn()
         end.record()
         pairs.append((start, end))
     torch.cuda.synchronize()
-    per_pair = iters if flush is None else 1
-    return statistics.median(s.elapsed_time(e) / per_pair for s, e in pairs)
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def device_ms(fns, iters: int = 50, reps: int = 5) -> dict:
+    """Device time of one call, with the host left out: ``iters`` calls,
+    rotating over ``fns`` (each a call on its own copy of the inputs, so
+    that enough copies find the L2 cache cold), queued between one
+    CUDA-event pair behind a spin kernel (``torch.cuda._sleep``) that
+    lasts longer than the host takes to queue them. The device then runs
+    the calls back to back whatever the host's per-call work (argument
+    checks, custom-op dispatch, ``ctypes``). Returns the median over
+    ``reps`` pairs of the pair's time over ``iters``, and ``hidden``:
+    whether in every pair the host queued the last call before the device
+    could have run out of work (the host's queueing time below the spin's
+    plus the calls'). A host that blocks on a full launch queue (a plain
+    version's many small kernels) waits for the device and hides too."""
+    import torch
+    fns = list(fns)
+    for fn in fns:                      # warm every copy once
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fns[i % len(fns)]()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # 2 GHz is above the SM clock, so the spin lasts at least this long
+    cycles = int(2.0e9 * (2 * host_s + 2e-4))
+    runs = []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for i in range(iters):
+            fns[i % len(fns)]()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        runs.append((ev, host_ms))
+    torch.cuda.synchronize()
+    spins = [ev[0].elapsed_time(ev[1]) for ev, _ in runs]
+    calls = [ev[1].elapsed_time(ev[2]) for ev, _ in runs]
+    return {"ms": statistics.median(calls) / iters,
+            "hidden": all(h < sp + c for (_, h), sp, c
+                          in zip(runs, spins, calls))}
 
 
 # ----------------------------------------------------------------- phases
@@ -232,13 +279,26 @@ def check_kernel(name, case, label, dtype_name, timed):
     res = {"shape": label, "dtype": dtype_name, "max_abs_err": err,
            "tol": tol, "ok": ok}
     if timed:
-        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda") \
-            if name == "flash_decode" else None
-        res["ms"] = median_ms(lambda: kern(*args, **kwargs), flush=flush)
-        res["plain_ms"] = median_ms(lambda: plain(*args, **kwargs),
-                                    flush=flush)
-        res["library_ms"] = median_ms(library_call(name, args, kwargs),
-                                      flush=flush)
+        copies = [args]
+        if name == "flash_decode":
+            # a decode call reads a cache that the previous layer's call did
+            # not leave in L2: rotate over copies that together exceed it
+            per = sum(t.numel() * t.element_size() for t in args)
+            copies += [tuple(t.clone() for t in args)
+                       for _ in range(math.ceil(ROTATE_BYTES / per) - 1)]
+        res["host_hidden"] = {}
+        for key, make in (
+                ("ms", lambda a: lambda: kern(*a, **kwargs)),
+                ("plain_ms", lambda a: lambda: plain(*a, **kwargs)),
+                ("library_ms", lambda a: library_call(name, a, kwargs))):
+            t = device_ms([make(a) for a in copies])
+            res[key] = t["ms"]
+            res["host_hidden"][key] = t["hidden"]
+        res["copies"] = len(copies)
+        if name == "flash_decode":
+            flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+            res["flushed_ms"] = flushed_ms(lambda: kern(*args, **kwargs),
+                                           flush=flush)
         m = machine()
         peak = {"bfloat16": m.tensor_flops_per_s,
                 "float32": m.vector_flops_per_s}[dtype_name]
@@ -249,7 +309,11 @@ def check_kernel(name, case, label, dtype_name, timed):
     say(f"  {name} {label} {dtype_name}: max_abs_err={err:.3g} (tol {tol})"
         + (f" ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
            f"library_ms={res['library_ms']:.4f} bound_ms="
-           f"{res['bound_ms']:.4f} ({res['bound_by']})" if timed else "")
+           f"{res['bound_ms']:.4f} ({res['bound_by']}); device-only over "
+           f"{res['copies']} input copies, host hidden (kernel/plain/"
+           f"library): {'/'.join(str(v) for v in res['host_hidden'].values())}"
+           + (f"; flushed single-pair ms={res['flushed_ms']:.4f}"
+              if "flushed_ms" in res else "") if timed else "")
         + ("" if ok else "  MISMATCH"))
     return res
 
@@ -280,12 +344,12 @@ def check_chacha20(label, key, nonce, counter0, n_blocks, timed=False):
            "mismatched_words": bad, "tol": 0, "ok": bad == 0}
     if timed:
         m = machine()
-        res["ms"] = median_ms(
-            lambda: chacha20.keystream(key, nonce, counter0, n_blocks))
-        res["plain_ms"] = median_ms(
-            lambda: ref.chacha20_keystream_ref(key, nonce, counter0,
-                                               n_blocks), iters=5, warmup=1,
-            reps=3)
+        res["ms"] = device_ms(
+            [lambda: chacha20.keystream(key, nonce, counter0, n_blocks)])["ms"]
+        res["plain_ms"] = device_ms(
+            [lambda: ref.chacha20_keystream_ref(key, nonce, counter0,
+                                                n_blocks)], iters=5,
+            reps=3)["ms"]
         res["library_ms"] = None
         nbytes = 4 * (8 + 3) + 64 * n_blocks
         by_bytes = nbytes / m.hbm_bytes_per_s * 1e3
@@ -329,27 +393,131 @@ def chacha20_checks():
             ("64 MiB, 1048576 blocks", 7, 1 << 20, True))]
 
 
-def chacha20_sass() -> str:
-    """Instruction mix of the built chacha20 kernel from ``cuobjdump``,
-    beside the count its bound assumes. The kernel has no loop left after
-    unrolling, so each instruction runs once a block."""
+def demangle(names):
+    """C++ names of mangled kernel symbols (``c++filt``), or the symbols."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60,
+                             check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return list(names)
+    return [o.replace("(anonymous namespace)::", "").split("(")[0]
+            .removeprefix("void ") for o in out] \
+        if len(out) == len(names) else list(names)
+
+
+def sass_ops(name: str) -> dict:
+    """SASS opcode counts of each kernel in the built library ``name``,
+    from ``cuobjdump``, keyed by the kernel's C++ name."""
     import collections
     import re
 
     from repro_torch.kernels import build
     tool = Path(build.nvcc()).with_name("cuobjdump")
     if not tool.exists():
+        return {}
+    sass = subprocess.run([str(tool), "-sass", str(build._so_path(name))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    parts = re.split(r"\n\s*Function : (\S+)", sass)[1:]
+    funcs = {}
+    for fn, body in zip(demangle(parts[0::2]), parts[1::2]):
+        ops = collections.Counter(
+            m.group(1).split(".")[0] for m in re.finditer(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9.]*)",
+                body))
+        ops.pop("NOP", None)
+        funcs[fn] = ops
+    return funcs
+
+
+def chacha20_sass() -> str:
+    """Instruction mix of the built chacha20 kernel, beside the count its
+    bound assumes. The kernel has no loop left after unrolling, so each
+    instruction runs once a block."""
+    import collections
+    funcs = sass_ops("chacha20")
+    if not funcs:
         return "not measured (no cuobjdump)"
-    sass = subprocess.run([str(tool), "-sass", str(build._so_path(
-        "chacha20"))], capture_output=True, text=True, timeout=120,
-        check=True).stdout
-    ops = collections.Counter(
-        m.group(1).split(".")[0] for m in re.finditer(
-            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9.]*)", sass))
-    ops.pop("NOP", None)
+    ops = sum(funcs.values(), collections.Counter())
     top = ", ".join(f"{k} {v}" for k, v in ops.most_common(8))
     return (f"{sum(ops.values())} instructions ({top}); the bound counts "
             f"{CHACHA20_INSTR_PER_BLOCK}")
+
+
+def ptxas_usage(name: str) -> dict:
+    """Registers, spills and static shared memory of each kernel of the
+    library ``name``, from ``ptxas -v`` as this process's build printed
+    it, keyed by the kernel's C++ name."""
+    import re
+
+    from repro_torch.kernels import build
+    usage, fn = {}, None
+    for line in build.LOGS.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            usage[fn] = {}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage[fn]["spills"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[fn]["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            usage[fn]["smem"] = int(s.group(1)) if s else 0
+    return dict(zip(demangle(list(usage)), usage.values()))
+
+
+def is_bf16(fn: str) -> bool:
+    """Whether a kernel's C++ name is a bf16 instantiation (the tensor-core
+    attention kernel takes bf16 only and has no type parameter)."""
+    return "bfloat16" in fn or "_tc_kernel" in fn
+
+
+def kernel_build_report() -> None:
+    """Phase 2's lines for the attention kernels: each bf16 instantiation's
+    registers, spills and static shared memory (``ptxas -v``), the
+    tensor-core instructions
+    of the bf16 ``flash_attention`` (``HGMMA`` for ``wgmma``, ``HMMA`` for
+    ``mma.sync``), and the decode grid at the serve shape."""
+    import collections
+
+    from repro_torch.kernels import build, decode_attention, flash_attention
+    for name in ("flash_attention", "flash_decode"):
+        use = {fn: u for fn, u in ptxas_usage(name).items() if is_bf16(fn)}
+        warn = sorted({line.split(":", 1)[-1].strip()[:160] for line in
+                       build.LOGS.get(name, "").splitlines()
+                       if "Performance" in line or "arning" in line})
+        if warn:
+            say(f"  {name} ptxas warnings: " + " | ".join(warn))
+        say(f"  {name} ptxas (bf16): " + ("; ".join(
+            f"{fn} {u.get('registers')} regs, {u.get('spills')} B spilled, "
+            f"{u.get('smem')} B static smem" for fn, u in sorted(use.items()))
+            or "not measured (the library was not built by this process)"))
+    say("  flash_attention dynamic shared memory a block, D 16/32/64/128: "
+        + "; ".join(f"{dt}{gl} {[flash_attention.smem_bytes(dt, d, g) for d in (16, 32, 64, 128)]}"
+                    for dt, g, gl in (("float32", 1, ""),
+                                      ("bfloat16", 1, " G odd"),
+                                      ("bfloat16", 2, " G even"))))
+    funcs = sass_ops("flash_attention")
+    tc = {fn: {op: n for op, n in ops.items() if op in ("HGMMA", "HMMA")}
+          for fn, ops in funcs.items()
+          if is_bf16(fn) and "flash_attention" in fn}
+    tc_total = sum((collections.Counter(v) for v in tc.values()),
+                   collections.Counter())
+    say(f"  flash_attention bf16 tensor-core SASS: {dict(tc_total) or 0} "
+        f"over {len(tc)} instantiations" if funcs else
+        "  flash_attention SASS: not measured (no cuobjdump)")
+    grid = (decode_attention.plan_splits(1, 16, 576, 132)[0], 16, 1)
+    say(f"  flash_decode grid at the serve shape (B1 KVH16 S576): {grid}, "
+        f"{math.prod(grid)} blocks; {decode_attention.LAUNCHES_PER_CALL} "
+        "CUDA launch a call")
+    return tc_total
 
 
 def calibration_shape_checks(gen):
@@ -683,6 +851,7 @@ def main() -> int:
             f"{secs:.1f}s ({' '.join(build.NVCC_FLAGS)})")
         say(f"  chacha20 SASS (one block a thread, fully unrolled): "
             f"{chacha20_sass()}")
+        kernel_build_report()
 
         say("phase 3 kernels against their plain versions:")
         results = kernel_phase()

@@ -5,23 +5,46 @@
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py::flash_decode
 // (body _fd_kernel). On the TPU each query head walks the KV blocks along a
 // sequential grid axis with (m, l, acc) in VMEM, and every head of a GQA
-// group reads its KV blocks again. Here one CUDA block owns one
-// (batch, KV head) and serves all G query heads of that group from each K/V
-// row it loads. Its four warps take interleaved 32-key chunks of the cache,
-// each warp keeping its own online-softmax state in registers, and the block
-// merges the four states at the end. Only ceil(lengths[b] / 32) chunks are
-// visited: a position at or past lengths[b] is never read.
+// group reads its KV blocks again.
 //
-// What bounds it: the bytes of the valid K and V rows (2 x lengths x D x 2 B a
-// KV head in bf16); the arithmetic is about one FMA per byte. At the serving
-// shape (B=1, 16 KV heads, 513..576 positions, D=64) that is about 2.4 MB,
-// 0.7 us at 3.35 TB/s, which is below a kernel launch: with one block per KV
-// head only 16 of 132 SMs work, and the time is latency, not bandwidth.
-// Splitting the KV axis across blocks (split-KV with a second merge pass) is
-// the later fix; this first kernel is the simple, exact one. Scores read each
-// key row with 16-byte loads by the lane that owns the key; the readout reads
-// V rows coalesced across lanes (lane owns output dims lane, lane + 32, ...),
-// eight rows in flight at a time.
+// What bounds it: the bytes of the valid K and V rows (2 x length x D x 2 B a
+// KV head in bf16); the arithmetic is about one FMA a byte. At the serving
+// shape (B=1, 16 KV heads, 576-position cache, length 513, D=64) that is
+// 2.1 MB, 0.63 us at 3.35 TB/s, below what one launch costs; at the GQA
+// shape (B=4, 4 KV heads, D=128, lengths 1..576) 2.5 MB, 0.76 us. Neither
+// can come near its bound: the time is one kernel's latency. The first
+// kernel (one block per (batch, KV head): 16 blocks on 132 SMs, each lane
+// reading a whole key row) took 25 us at the serving shape, cold.
+//
+// The design, split-KV: the grid is (splits, KVH, B). The wrapper cuts the
+// cache axis into `splits` chunks of `chunk` positions (a multiple of 32, at
+// least 64; kernels/decode_attention.py::plan_splits picks them from B, KVH,
+// S and the SM count, never from `lengths`, so the host never waits for the
+// card), enough to put a block on every SM at the serving shape (9 x 64
+// positions x 16 KV heads = 144 blocks). A block reads only the positions of
+// its chunk below lengths[b]: one whose chunk starts at or past lengths[b]
+// reads nothing and writes an empty partial (m = NEG_INF, the reference's
+// -inf; l = 0; acc = 0). Loads are 16 bytes a lane and coalesced: D*size/16
+// lanes share a row (8 for D=64 bf16, so a warp reads 4 whole rows an
+// instruction), and each lane has up to four rows of K and V in flight
+// before it uses any (Unroll: fewer for large groups). The row's score is a butterfly over its lanes; each lane then
+// keeps its own online-softmax state (m, l and its 16 bytes of acc) for every
+// query head of the group, so every K/V row loaded serves all G heads.
+// The states of a warp's row slots merge by shuffles, the block's four warps
+// through shared memory.
+//
+// The merge, in the same launch: each block writes its partial (m, l, acc)
+// in fp32 to a scratch buffer that the wrapper allocates with torch.empty,
+// then adds one to a counter of its (b, kvh); the block that brings it to
+// `splits` (the last to finish) rescales the partials by 2^(m - max m),
+// combines them, writes the output and sets the counter back to 0. The
+// wrapper keeps one zeroed counter buffer per device, so calls on one stream
+// never share a counter (two streams running decode at once would). One call
+// is one CUDA launch: a merge kernel of its own, as first built, made the
+// call no faster and cost a second launch (PERF.md). With one split (B x KVH
+// already fills the card) the block normalises and writes the output itself. A length of 0 gives 0
+// (every partial is empty). fp32 and bf16 share the design; the arithmetic
+// is fp32 in both, the softmax in base 2 (scores prescaled by log2 e).
 //
 // Layout: q [B, H, D], k/v [B, KVH, S, D] and o [B, H, D] are passed with
 // their strides and a contiguous last dimension, so the model's cache
@@ -37,193 +60,307 @@ namespace {
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 
-// q rows of the group, then each warp's (m, l, acc) for the final merge
-template <int D, int GT> struct Smem {
-  static constexpr int FLOATS = GT * D + 2 * WARPS * GT + WARPS * GT * D;
-  static constexpr size_t BYTES = FLOATS * sizeof(float);
-};
+// rows a lane loads before it uses any: fewer for large groups, whose
+// per-lane state (GT heads x 16 bytes of acc) fills the registers
+constexpr double LOG2E = 1.4426950408889634;
+// partials the last block's merge has in flight a thread and output
+constexpr int MERGE_BATCH = 8;
+
+template <int GT> struct Unroll { static constexpr int N = GT <= 2 ? 4 : GT <= 4 ? 2 : 1; };
+
+// 16 loaded bytes widened to fp32
+__device__ __forceinline__ void widen(const uint4& raw, float* out, const float*) {
+  out[0] = __uint_as_float(raw.x); out[1] = __uint_as_float(raw.y);
+  out[2] = __uint_as_float(raw.z); out[3] = __uint_as_float(raw.w);
+}
+
+__device__ __forceinline__ void widen(const uint4& raw, float* out,
+                                      const __nv_bfloat16*) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+// Fold state (m2, l2, a2) into (m, l, a); m in log2 units.
+template <int E>
+__device__ __forceinline__ void combine(float& m, float& l, float* a, float m2,
+                                        float l2, const float* a2) {
+  const float mx = fmaxf(m, m2);
+  const float c1 = exp2f(m - mx), c2 = exp2f(m2 - mx);
+  l = l * c1 + l2 * c2;
+#pragma unroll
+  for (int e = 0; e < E; ++e) a[e] = a[e] * c1 + a2[e] * c2;
+  m = mx;
+}
 
 template <typename T, int D, int GT>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ lengths,
-                    T* __restrict__ o, int G, int S,
-                    long long qb, long long qh,
-                    long long kb, long long kh, long long ks,
-                    long long vb, long long vh, long long vs,
-                    long long ob, long long oh, float scale) {
-  constexpr int V = Vec<T>::N;
-  constexpr int DPL = (D + 31) / 32;    // output dims per lane
-  extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                    // [GT][D]
-  float* m_s = q_s + GT * D;            // [WARPS][GT]
-  float* l_s = m_s + WARPS * GT;        // [WARPS][GT]
-  float* a_s = l_s + WARPS * GT;        // [WARPS][GT][D]
+                          const T* __restrict__ v,
+                          const int* __restrict__ lengths, T* __restrict__ o,
+                          float* __restrict__ part, int G, int S, int chunk,
+                          long long qb, long long qh,
+                          long long kb, long long kh, long long ks,
+                          long long vb, long long vh, long long vs,
+                          long long ob, long long oh, int* __restrict__ counters,
+                          float scale_log2) {
+  constexpr int E = 16 / sizeof(T);     // elements a lane loads from a row
+  constexpr int LPR = D / E;            // lanes that share a row
+  constexpr int RPW = 32 / LPR;         // rows a warp loads an instruction
+  constexpr int RPB = RPW * WARPS;      // rows the block loads an instruction
+  constexpr int U = Unroll<GT>::N;
+  __shared__ __align__(16) float q_s[GT * D];
+  __shared__ float m_s[WARPS * GT], l_s[WARPS * GT];
+  __shared__ __align__(16) float a_s[WARPS * GT * D];
 
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int len = min(lengths[b], S);
-  const T* kp = k + b * kb + kvh * kh;
-  const T* vp = v + b * vb + kvh * vh;
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int splits = gridDim.x, KVH = gridDim.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int slot = lane / LPR;          // the warp's row this lane loads
+  const int c0 = (lane % LPR) * E;      // its first dimension
+  const int len = max(0, min(lengths[b], S));
+  const int r0 = split * chunk;
+  const int r1 = min(r0 + chunk, len);
 
-  // the group's query heads kvh * G .. kvh * G + G - 1; padding heads are 0
-  for (int idx = threadIdx.x; idx < GT * D; idx += THREADS) {
-    const int g = idx / D, d = idx % D;
-    q_s[idx] = g < G ? to_float(q[b * qb + (long long)(kvh * G + g) * qh + d]) : 0.f;
-  }
-  __syncthreads();
-
-  float m[GT], l[GT], acc[GT][DPL];
+  float m[GT], l[GT], acc[GT][E];
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
     m[g] = NEG_INF;
     l[g] = 0.f;
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) acc[g][c] = 0.f;
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
   }
 
-  const int n_chunks = (len + 31) / 32;
-  for (int chunk = warp; chunk < n_chunks; chunk += WARPS) {
-    const int key = chunk * 32 + lane;
-    const bool valid = key < len;
-
-    // scores: lane owns one key row, read with 16-byte loads
-    float s[GT];
+  if (r0 < r1) {                        // the same for the whole block
+    const T* kp = k + b * kb + kvh * kh + c0;
+    const T* vp = v + b * vb + kvh * vh + c0;
+    uint4 kr[U], vr[U];
+    bool ok[U];
+    auto load_rows = [&](int base) {
 #pragma unroll
-    for (int g = 0; g < GT; ++g) s[g] = 0.f;
-    if (valid) {
-      const T* krow = kp + key * ks;
+      for (int u = 0; u < U; ++u) {
+        const int row = base + u * RPB + slot;
+        ok[u] = row < r1;
+        kr[u] = ok[u] ? *reinterpret_cast<const uint4*>(kp + row * ks)
+                      : make_uint4(0, 0, 0, 0);
+        vr[u] = ok[u] ? *reinterpret_cast<const uint4*>(vp + row * vs)
+                      : make_uint4(0, 0, 0, 0);
+      }
+    };
+    // the first rows are in flight while the group's query heads
+    // kvh * G .. kvh * G + G - 1 go to shared memory (padding heads are 0)
+    load_rows(r0 + warp * RPW);
+    for (int idx = threadIdx.x; idx < GT * D; idx += THREADS) {
+      const int g = idx / D, d = idx % D;
+      q_s[idx] = g < G ? to_float(q[b * qb + (long long)(kvh * G + g) * qh + d])
+                       : 0.f;
+    }
+    __syncthreads();
+    // the loop bound is the same for every lane of a warp, so the
+    // butterfly's shuffles always have all 32 lanes
+    for (int base = r0 + warp * RPW; base < r1; base += U * RPB) {
+      if (base != r0 + warp * RPW) load_rows(base);
+      float s[U][GT];
 #pragma unroll
-      for (int d = 0; d < D; d += V) {
-        float kv[V];
-        load_vec(krow + d, kv);
+      for (int u = 0; u < U; ++u) {
+        float kf[E];
+        widen(kr[u], kf, static_cast<const T*>(nullptr));
 #pragma unroll
         for (int g = 0; g < GT; ++g) {
+          const float* qg = q_s + g * D + c0;
+          float acc_s = 0.f;
 #pragma unroll
-          for (int i = 0; i < V; i += 4) {
-            const float4 q4 = *reinterpret_cast<const float4*>(q_s + g * D + d + i);
-            s[g] = fmaf(q4.x, kv[i], s[g]);
-            s[g] = fmaf(q4.y, kv[i + 1], s[g]);
-            s[g] = fmaf(q4.z, kv[i + 2], s[g]);
-            s[g] = fmaf(q4.w, kv[i + 3], s[g]);
+          for (int e = 0; e < E; e += 4) {
+            const float4 q4 = *reinterpret_cast<const float4*>(qg + e);
+            acc_s = fmaf(q4.x, kf[e], acc_s);
+            acc_s = fmaf(q4.y, kf[e + 1], acc_s);
+            acc_s = fmaf(q4.z, kf[e + 2], acc_s);
+            acc_s = fmaf(q4.w, kf[e + 3], acc_s);
           }
+          s[u][g] = acc_s;
         }
       }
+      // the row's score: a butterfly over the LPR lanes that share it
+#pragma unroll
+      for (int off = 1; off < LPR; off <<= 1)
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+#pragma unroll
+          for (int g = 0; g < GT; ++g)
+            s[u][g] += __shfl_xor_sync(FULL_MASK, s[u][g], off);
+      float vf[U][E];
+#pragma unroll
+      for (int u = 0; u < U; ++u) widen(vr[u], vf[u], static_cast<const T*>(nullptr));
+      // this lane's online softmax over its U rows, for every head
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+        float mx = m[g];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (ok[u]) mx = fmaxf(mx, s[u][g] * scale_log2);
+        const float corr = exp2f(m[g] - mx);
+        l[g] *= corr;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[g][e] *= corr;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const float p = ok[u] ? exp2f(s[u][g] * scale_log2 - mx) : 0.f;
+          l[g] += p;
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[g][e] = fmaf(p, vf[u][e], acc[g][e]);
+        }
+        m[g] = mx;
+      }
     }
+  }
 
-    // online softmax over this chunk, one warp reduction per head
-    float p[GT];
+  // merge the warp's row slots (lanes LPR apart hold the same dimensions)
+#pragma unroll
+  for (int off = LPR; off < 32; off <<= 1) {
 #pragma unroll
     for (int g = 0; g < GT; ++g) {
-      const float sg = valid ? s[g] * scale : NEG_INF;
-      const float m_new = fmaxf(m[g], warp_max(sg));
-      p[g] = valid ? expf(sg - m_new) : 0.f;
-      const float corr = expf(m[g] - m_new);
-      l[g] = l[g] * corr + warp_sum(p[g]);
-      m[g] = m_new;
+      float a2[E];
 #pragma unroll
-      for (int c = 0; c < DPL; ++c) acc[g][c] *= corr;
-    }
-
-    // readout: V rows coalesced across lanes, eight rows in flight at a
-    // time; p broadcast from the lane that owns the key (0 past nk)
-    const int nk = min(32, len - chunk * 32);
-    for (int j0 = 0; j0 < nk; j0 += 8) {
-      float vd[8][DPL];
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int j = j0 + jj;
-        const T* vrow = vp + (long long)(chunk * 32 + j) * vs;
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) {
-          const int d = c * 32 + lane;
-          vd[jj][c] = (j < nk && d < D) ? to_float(vrow[d]) : 0.f;
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-        for (int g = 0; g < GT; ++g) {
-          const float pj = __shfl_sync(FULL_MASK, p[g], j0 + jj);
-#pragma unroll
-          for (int c = 0; c < DPL; ++c)
-            acc[g][c] = fmaf(pj, vd[jj][c], acc[g][c]);
-        }
-      }
+      for (int e = 0; e < E; ++e) a2[e] = __shfl_xor_sync(FULL_MASK, acc[g][e], off);
+      const float m2 = __shfl_xor_sync(FULL_MASK, m[g], off);
+      const float l2 = __shfl_xor_sync(FULL_MASK, l[g], off);
+      combine<E>(m[g], l[g], acc[g], m2, l2, a2);
     }
   }
-
-  // merge the warps' states
+  // then the block's warps, through shared memory
+  if (lane < LPR) {
 #pragma unroll
-  for (int g = 0; g < GT; ++g) {
-    if (lane == 0) {
-      m_s[warp * GT + g] = m[g];
-      l_s[warp * GT + g] = l[g];
-    }
+    for (int g = 0; g < GT; ++g) {
+      if (lane == 0) {
+        m_s[warp * GT + g] = m[g];
+        l_s[warp * GT + g] = l[g];
+      }
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) {
-      const int d = c * 32 + lane;
-      if (d < D) a_s[(warp * GT + g) * D + d] = acc[g][c];
+      for (int e = 0; e < E; ++e) a_s[(warp * GT + g) * D + c0 + e] = acc[g][e];
     }
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < GT * D; idx += THREADS) {
+  const long long n_part = (long long)splits * KVH * gridDim.z * G;
+  for (int idx = threadIdx.x; idx < G * D; idx += THREADS) {
     const int g = idx / D, d = idx % D;
-    if (g >= G) continue;
     float mx = NEG_INF;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, m_s[w * GT + g]);
     float den = 0.f, num = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) {
-      const float e = expf(m_s[w * GT + g] - mx);
+      const float e = exp2f(m_s[w * GT + g] - mx);
       den += l_s[w * GT + g] * e;
       num += a_s[(w * GT + g) * D + d] * e;
     }
-    store(o + b * ob + (long long)(kvh * G + g) * oh + d, num / fmaxf(den, 1e-30f));
+    if (splits == 1) {
+      store(o + b * ob + (long long)(kvh * G + g) * oh + d, num / fmaxf(den, 1e-30f));
+    } else {
+      // partial p = ((b * KVH + kvh) * splits + split) * G + g:
+      // acc at part[p * D + d], (m, l) at part[n_part * D + 2 p]
+      const long long p = ((long long)(b * KVH + kvh) * splits + split) * G + g;
+      part[p * D + d] = num;
+      if (d == 0) {
+        part[n_part * D + 2 * p] = mx;
+        part[n_part * D + 2 * p + 1] = den;
+      }
+    }
+  }
+  if (splits == 1) return;
+
+  // The last block of (b, kvh) to write its partial merges them all:
+  // out = sum_s acc_s e_s / sum_s l_s e_s, e_s = 2^(m_s - max m), folded in
+  // online-softmax order, MERGE_BATCH partials of two outputs a thread in
+  // flight (read through L2: other SMs wrote them). It resets the counter,
+  // so the next call finds it 0.
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(counters + b * KVH + kvh, 1) == splits - 1;
+    if (last) counters[b * KVH + kvh] = 0;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* ml = part + n_part * D;
+  const long long p0 = (long long)(b * KVH + kvh) * splits * G;
+  for (int idx0 = threadIdx.x; idx0 < G * D; idx0 += 2 * THREADS) {
+    float mo[2] = {NEG_INF, NEG_INF}, lo[2] = {0.f, 0.f}, ao[2] = {0.f, 0.f};
+    for (int s0 = 0; s0 < splits; s0 += MERGE_BATCH) {
+      float m2[2][MERGE_BATCH], l2[2][MERGE_BATCH], a2[2][MERGE_BATCH];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int idx = idx0 + j * THREADS;
+        const int g = idx / D, d = idx % D;
+#pragma unroll
+        for (int i = 0; i < MERGE_BATCH; ++i) {
+          const bool ok = idx < G * D && s0 + i < splits;
+          const long long p = p0 + (long long)(s0 + i) * G + g;
+          m2[j][i] = ok ? __ldcg(ml + 2 * p) : NEG_INF;
+          l2[j][i] = ok ? __ldcg(ml + 2 * p + 1) : 0.f;
+          a2[j][i] = ok ? __ldcg(part + p * D + d) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int i = 0; i < MERGE_BATCH; ++i)
+          combine<1>(mo[j], lo[j], &ao[j], m2[j][i], l2[j][i], &a2[j][i]);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int idx = idx0 + j * THREADS;
+      if (idx < G * D)
+        store(o + b * ob + (long long)(kvh * G + idx / D) * oh + idx % D,
+              ao[j] / fmaxf(lo[j], 1e-30f));
+    }
   }
 }
 
 template <typename T, int D, int GT>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* lengths, void* o, int B, int KVH, int G, int S,
+                   const int* lengths, void* o, float* part, int* counters,
+                   int B, int KVH, int G, int S, int chunk, int splits,
                    const long long* st, cudaStream_t stream) {
-  constexpr size_t smem = Smem<D, GT>::BYTES;
-  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
-  static_assert(Smem<D, GT>::BYTES <= 48 * 1024, "decode tile exceeds 48 KB");
-  const dim3 grid(KVH, B);
-  flash_decode_kernel<T, D, GT><<<grid, THREADS, smem, stream>>>(
+  const float scale_log2 =
+      static_cast<float>(LOG2E / std::sqrt(static_cast<double>(D)));
+  flash_decode_kernel<T, D, GT><<<dim3(splits, KVH, B), THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(o), G, S,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], scale);
+      static_cast<const T*>(v), lengths, static_cast<T*>(o), part, G, S,
+      chunk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+      st[9], counters, scale_log2);
   return cudaGetLastError();
 }
 
 // GT: the group size rounded up to a power of two (padding heads are masked)
 template <typename T, int D>
 cudaError_t dispatch_g(int G, const void* q, const void* k, const void* v,
-                       const int* len, void* o, int B, int KVH, int S,
+                       const int* len, void* o, float* part, int* cnt, int B,
+                       int KVH, int S, int chunk, int splits,
                        const long long* st, cudaStream_t s) {
-  if (G <= 1) return launch<T, D, 1>(q, k, v, len, o, B, KVH, G, S, st, s);
-  if (G <= 2) return launch<T, D, 2>(q, k, v, len, o, B, KVH, G, S, st, s);
-  if (G <= 4) return launch<T, D, 4>(q, k, v, len, o, B, KVH, G, S, st, s);
-  if (G <= 8) return launch<T, D, 8>(q, k, v, len, o, B, KVH, G, S, st, s);
-  if (G <= 16) return launch<T, D, 16>(q, k, v, len, o, B, KVH, G, S, st, s);
+  if (G <= 1) return launch<T, D, 1>(q, k, v, len, o, part, cnt, B, KVH, G, S, chunk, splits, st, s);
+  if (G <= 2) return launch<T, D, 2>(q, k, v, len, o, part, cnt, B, KVH, G, S, chunk, splits, st, s);
+  if (G <= 4) return launch<T, D, 4>(q, k, v, len, o, part, cnt, B, KVH, G, S, chunk, splits, st, s);
+  if (G <= 8) return launch<T, D, 8>(q, k, v, len, o, part, cnt, B, KVH, G, S, chunk, splits, st, s);
+  if (G <= 16) return launch<T, D, 16>(q, k, v, len, o, part, cnt, B, KVH, G, S, chunk, splits, st, s);
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
 cudaError_t dispatch_d(int D, int G, const void* q, const void* k,
-                       const void* v, const int* len, void* o, int B, int KVH,
-                       int S, const long long* st, cudaStream_t s) {
+                       const void* v, const int* len, void* o, float* part,
+                       int* cnt, int B, int KVH, int S, int chunk, int splits,
+                       const long long* st, cudaStream_t s) {
   switch (D) {
-    case 16: return dispatch_g<T, 16>(G, q, k, v, len, o, B, KVH, S, st, s);
-    case 32: return dispatch_g<T, 32>(G, q, k, v, len, o, B, KVH, S, st, s);
-    case 64: return dispatch_g<T, 64>(G, q, k, v, len, o, B, KVH, S, st, s);
-    case 128: return dispatch_g<T, 128>(G, q, k, v, len, o, B, KVH, S, st, s);
+    case 16: return dispatch_g<T, 16>(G, q, k, v, len, o, part, cnt, B, KVH, S, chunk, splits, st, s);
+    case 32: return dispatch_g<T, 32>(G, q, k, v, len, o, part, cnt, B, KVH, S, chunk, splits, st, s);
+    case 64: return dispatch_g<T, 64>(G, q, k, v, len, o, part, cnt, B, KVH, S, chunk, splits, st, s);
+    case 128: return dispatch_g<T, 128>(G, q, k, v, len, o, part, cnt, B, KVH, S, chunk, splits, st, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -231,20 +368,31 @@ cudaError_t dispatch_d(int D, int G, const void* q, const void* k,
 }  // namespace
 
 // q [B,H,D], k/v [B,KVH,S,D], lengths [B] int32, o [B,H,D]; scores are
-// scaled by 1/sqrt(D). Strides (in elements): q (batch, head), k (batch,
-// head, sequence), v (batch, head, sequence), o (batch, head): 10 values.
-// Returns cudaGetLastError().
+// scaled by 1/sqrt(D). The cache axis is cut into `splits` chunks of `chunk`
+// positions (splits * chunk >= S). With splits > 1, `part` is fp32 scratch of
+// B * H * splits * (D + 2) floats and `counters` B * KVH int32 that are 0 on
+// entry and 0 again on return (the kernel resets them, so one zeroed buffer
+// serves every call on a stream); with one split both are unused. Strides (in
+// elements): q (batch, head), k (batch, head, sequence), v (batch, head,
+// sequence), o (batch, head): 10 values. One launch; returns
+// cudaGetLastError().
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
-                                const void* lengths, void* o, int dtype,
-                                int B, int H, int KVH, int S, int D,
+                                const void* lengths, void* o, void* part,
+                                void* counters, int dtype, int B, int H,
+                                int KVH, int S, int D, int chunk, int splits,
                                 const long long* strides, void* stream) {
-  if (B <= 0 || KVH <= 0 || H % KVH != 0) return cudaErrorInvalidValue;
+  if (B <= 0 || KVH <= 0 || H % KVH != 0 || splits <= 0 || chunk <= 0 ||
+      (long long)splits * chunk < S ||
+      (splits > 1 && (part == nullptr || counters == nullptr)))
+    return cudaErrorInvalidValue;
   const int G = H / KVH;
   const int* len = static_cast<const int*>(lengths);
+  float* p = static_cast<float*>(part);
+  int* cnt = static_cast<int*>(counters);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_F32)
-    return dispatch_d<float>(D, G, q, k, v, len, o, B, KVH, S, strides, st);
+    return dispatch_d<float>(D, G, q, k, v, len, o, p, cnt, B, KVH, S, chunk, splits, strides, st);
   if (dtype == DTYPE_BF16)
-    return dispatch_d<__nv_bfloat16>(D, G, q, k, v, len, o, B, KVH, S, strides, st);
+    return dispatch_d<__nv_bfloat16>(D, G, q, k, v, len, o, p, cnt, B, KVH, S, chunk, splits, strides, st);
   return cudaErrorInvalidValue;
 }

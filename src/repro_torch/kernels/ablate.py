@@ -1,0 +1,151 @@
+"""Where the bf16 ``flash_attention`` kernel's time goes, on the card.
+
+Builds copies of ``csrc/flash_attention.cu`` with one part taken out each
+(the tensor-core products, the exponentials, the K/V copies inside the KV
+loop, all three, every KV tile but the first, the pairing of two GQA heads
+a block) or the K/V ring resized, and times each beside the kernel as it
+is, at the serving and GQA shapes that ``chip_smoke.py`` times, device-only
+(50 calls queued behind a spin kernel). The copies compute wrong results:
+only their times mean anything. The parts are found by their source text;
+a copy whose text is gone fails loudly, so keep the markers below in step
+with the kernel. Needs a GPU and ``nvcc``; from the repository root:
+
+    PYTHONPATH=src python -m repro_torch.kernels.ablate
+
+prints one line a shape, the card's name and power limit first.
+"""
+from __future__ import annotations
+
+import ctypes
+import statistics
+import subprocess
+import time
+
+from repro_torch.kernels import build
+
+S_PRODUCT = """      wgmma_ss_n64(s, desc(q_s + kk * 256, 128, 16 * D),
+                   desc(k_s + kk * 256, 128, 16 * D), kk > 0);"""
+PV_PRODUCT = ("      wgmma_pv<D>(o_acc, a[kk], "
+              "desc(v_s + kk * 32 * D, 16 * D, 128));")
+EXP = "      s[i] = exp2f(s[i] - m[r]);"
+LOOP_COPIES = "    if (ahead < n_kv) {"
+N_KV = "  const int n_kv = (kv_end + BK - 1) / BK;"
+PAIR = "  return (H / KVH) % 2 == 0"
+STAGES = "  static constexpr int STAGES = D <= 64 ? 4 : 3;"
+
+NO_PRODUCTS = [(S_PRODUCT, "      {}"), (PV_PRODUCT, "      {}")]
+NO_EXP = [(EXP, "      s[i] = s[i] - m[r];")]
+NO_LOOP_COPIES = [(LOOP_COPIES, "    if (false) {")]
+VARIANTS = {
+    "as is": [],
+    "no products": NO_PRODUCTS,
+    "no exp2": NO_EXP,
+    "no copies in the loop": NO_LOOP_COPIES,
+    "none of the three": NO_PRODUCTS + NO_EXP + NO_LOOP_COPIES,
+    "first KV tile only": [(N_KV, "  const int n_kv = 1;")],
+    "one head a block": [(PAIR, "  return false")],
+    "2 stages": [(STAGES, "  static constexpr int STAGES = 2;")],
+    "8 stages at D <= 64": [(STAGES, "  static constexpr int STAGES = "
+                                     "D <= 64 ? 8 : 3;")],
+}
+# (B, H, KVH, S, D), causal, q/k/v as transpose views of [B, S, heads, D]
+SHAPES = [(1, 16, 16, 512, 64), (4, 48, 4, 500, 128)]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
+
+
+def variant_source(edits) -> str:
+    """The kernel's source with each (text, replacement) applied."""
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    for old, new in edits:
+        if old not in src:
+            raise RuntimeError(f"ablate: marker not in flash_attention.cu: "
+                               f"{old.strip()[:60]}")
+        src = src.replace(old, new)
+    return src
+
+
+def build_variants() -> dict:
+    """Compile every variant, all at once; returns name -> loaded library."""
+    out = build.BUILD_DIR / "ablate"
+    out.mkdir(parents=True, exist_ok=True)
+    for header in build.CSRC.glob("*.cuh"):
+        (out / header.name).write_text(header.read_text())
+    procs = {}
+    for i, (name, edits) in enumerate(VARIANTS.items()):
+        cu = out / f"fa_{i}.cu"
+        cu.write_text(variant_source(edits))
+        so = out / f"libfa_{i}.so"
+        flags = [f for f in build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+        procs[name] = (so, subprocess.Popen(
+            [build.nvcc(), *flags, "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"ablate: nvcc failed for {name!r}:\n{log}")
+        libs[name] = ctypes.CDLL(str(so))
+    return libs
+
+
+def device_ms(fn, iters: int = 50, reps: int = 5) -> float:
+    """Median device time of one call: ``iters`` calls queued between one
+    CUDA-event pair behind a spin kernel that outlasts the host's
+    queueing."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2.0e9 * (3 * host_s + 2e-4)))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("ablate: needs a CUDA device")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    libs = build_variants()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    stream = torch.cuda.current_stream().cuda_stream
+    for B, H, KVH, S, D in SHAPES:
+        q, k, v = (torch.randn(B, S, h, D, generator=gen, device="cuda")
+                   .to(torch.bfloat16).transpose(1, 2)
+                   for h in (H, KVH, KVH))
+        o = torch.empty_like(q)
+        st = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                      *v.stride()[:3], *o.stride()[:3])
+        row = []
+        for name, lib in libs.items():
+            fn = lib.flash_attention_fwd
+            fn.argtypes = _ARGTYPES
+            ms = device_ms(lambda fn=fn: fn(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                build.DTYPE_CODES["bfloat16"], B, H, KVH, S, D, st, 1,
+                stream))
+            row.append(f"{name} {ms * 1e3:.1f} us")
+        print(f"B{B} H{H} KVH{KVH} S{S} D{D} causal bf16: " + "; ".join(row),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

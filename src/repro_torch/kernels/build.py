@@ -19,10 +19,18 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+# --split-compile=0: nvcc runs its optimisation passes on as many threads
+# as the machine has (flash_decode has 40 instantiations, the longest
+# build; PERF.md has the build times); -Xptxas -v: each kernel's registers,
+# shared memory and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "--split-compile=0",
+              "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# the compiler's output of each library built by this process: ``ptxas``'s
+# registers, shared memory and spills of every kernel (``-Xptxas -v``)
+LOGS: Dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -72,6 +80,7 @@ def build(names: Iterable[str]) -> float:
             errors.append(f"nvcc failed for {name}.cu:\n{out}")
             tmp.unlink(missing_ok=True)
         else:
+            LOGS[name] = out
             os.replace(tmp, _so_path(name))     # atomic: no half-written .so
     if errors:
         raise RuntimeError("\n".join(errors))

@@ -2,16 +2,23 @@
 against a long KV cache.
 
 Port of ``repro.kernels.decode_attention``, written by hand for Hopper in
-``csrc/flash_decode.cu``: one block per (batch, KV head) serves every
-query head of the GQA group and visits only the first ``lengths[b]``
-cache positions. This is the serving hot path the device-pool scheduler
-treats as light and memory-bound (decode), against ``flash_attention``
-(prefill, matmul-bound). The wrapper runs only on CUDA tensors; the plain
-version is ``repro_torch.kernels.ref.decode_attention_ref``.
+``csrc/flash_decode.cu``: split-KV, a block per (chunk of the cache, KV
+head, batch row), each serving every query head of the GQA group and
+reading only positions below ``lengths[b]``; the last block of a KV head
+to finish merges the chunks' partial softmax states, in the same launch.
+:func:`plan_splits` cuts the cache from the shapes alone, so the host
+never reads ``lengths``. This is the serving hot path the device-pool
+scheduler treats as light and memory-bound (decode), against
+``flash_attention`` (prefill, matmul-bound). The wrapper runs only on
+CUDA tensors; the plain version is
+``repro_torch.kernels.ref.decode_attention_ref``, and
+``ref.decode_attention_split_ref`` repeats the kernel's split-and-merge
+arithmetic.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -21,9 +28,48 @@ from repro_torch.kernels import build
 launches = 0
 
 MAX_GROUP = 16          # query heads per KV head the kernel instantiates
+SPLIT_ALIGN = 32        # a chunk of the cache is a multiple of this ...
+MIN_CHUNK = 64          # ... and at least this many positions
+# CUDA launches one call makes: the merge runs in the kernel's last block of
+# each KV head
+LAUNCHES_PER_CALL = 1
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+
+# per device: int32 counters, one per (batch row, KV head), that the kernel
+# leaves at 0 after every call (grown, zeroed, when a call needs more)
+_COUNTERS: dict = {}
+
+
+def plan_splits(B: int, KVH: int, S: int, n_sm: int) -> tuple:
+    """(splits, chunk): the cache axis of length S cut into ``splits``
+    chunks of ``chunk`` positions (``splits * chunk >= S``), with ``chunk``
+    a multiple of 32 and, when cut at all, at least 64. Enough chunks to
+    give each of the ``n_sm`` SMs a block: ``B * KVH * splits >= n_sm``
+    whenever ``S >= 64 * n_sm / (B * KVH)``. From the shapes only: the
+    lengths stay on the card."""
+    want = -(-n_sm // max(1, B * KVH))
+    if want <= 1 or S <= MIN_CHUNK:
+        return 1, max(1, -(-S // SPLIT_ALIGN)) * SPLIT_ALIGN
+    chunk = max(MIN_CHUNK, S // want // SPLIT_ALIGN * SPLIT_ALIGN)
+    return -(-S // chunk), chunk
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters on ``device``, kept across
+    calls: the kernel sets each back to 0 before it returns."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -54,11 +100,18 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
+    splits, chunk = plan_splits(B, KVH, S, sm_count(q.device.index))
+    # the chunks' partial (acc, m, l) in fp32, for the merge
+    part = torch.empty(B * H * splits * (D + 2) if splits > 1 else 0,
+                       dtype=torch.float32, device=q.device)
+    counters = _counters(q.device, B * KVH) if splits > 1 else None
     strides = (ctypes.c_longlong * 10)(
         *q.stride()[:2], *k.stride()[:3], *v.stride()[:3], *o.stride()[:2])
     fn = build.bind("flash_decode", "flash_decode_fwd", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-             o.data_ptr(), code, B, H, KVH, S, D, strides,
+             o.data_ptr(), part.data_ptr() if splits > 1 else None,
+             counters.data_ptr() if splits > 1 else None, code, B, H, KVH,
+             S, D, chunk, splits, strides,
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check("flash_decode", err, "flash_decode")
     launches += 1

@@ -24,6 +24,15 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
 
 
+def smem_bytes(dtype: str, D: int, G: int = 1) -> int:
+    """Dynamic shared memory a block asks for, for ``dtype`` ("float32" or
+    "bfloat16"), head dim D and GQA group G (builds the library if
+    needed)."""
+    fn = build.bind("flash_attention", "flash_attention_smem_bytes",
+                    [ctypes.c_int] * 3)
+    return fn(build.DTYPE_CODES[dtype], D, G)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q [B,H,S,D], k/v [B,KVH,S,D] -> [B,H,S,D] in ``q.dtype``, with the

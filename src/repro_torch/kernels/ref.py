@@ -106,3 +106,33 @@ def decode_attention_ref(q, k, v, lengths, *, scale=None) -> torch.Tensor:
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgt,bktd->bkgd", p, v.float())
     return o.reshape(B, H, D).to(q.dtype)
+
+
+def decode_attention_split_ref(q, k, v, lengths, *, chunk: int,
+                               scale=None) -> torch.Tensor:
+    """The split-KV decode kernel's arithmetic (``csrc/flash_decode.cu``) in
+    plain PyTorch, for the tests: the cache cut into chunks of ``chunk``
+    positions, each chunk's partial (m, l, acc) over its positions below
+    ``lengths[b]`` (m = NEG_INF, l = 0, acc = 0 where it has none), then
+    the merge, acc and l rescaled by exp(m - max m). fp32 math; a length
+    of 0 gives 0, where the reference's oracle averages V."""
+    B, H, D = q.shape
+    KVH, S = k.shape[1], k.shape[2]
+    G = H // KVH
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    splits = max(1, -(-S // chunk))
+    pad = splits * chunk - S
+    kf, vf = (torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+              .reshape(B, KVH, splits, chunk, D) for t in (k, v))
+    qf = q.float().reshape(B, KVH, G, D)
+    s = torch.einsum("bkgd,bkncd->bkgnc", qf, kf) * scale
+    pos = torch.arange(splits * chunk, device=q.device).reshape(splits, chunk)
+    valid = (pos[None] < lengths.clamp(0, S)[:, None, None])[:, None, None]
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(-1)                                      # [B,KVH,G,splits]
+    p = torch.exp(s - m[..., None]) * valid
+    acc = torch.einsum("bkgnc,bkncd->bkgnd", p, vf)
+    w = torch.exp(m - m.amax(-1, keepdim=True))
+    o = (acc * w[..., None]).sum(-2) / (
+        (p.sum(-1) * w).sum(-1)[..., None].clamp_min(1e-30))
+    return o.reshape(B, H, D).to(q.dtype)

@@ -185,3 +185,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         cc.keystream(torch.zeros(8, dtype=torch.uint32),
                      torch.zeros(3, dtype=torch.uint32), 1, 4)
     assert ops.launch_counts() == NO_LAUNCHES
+
+
+def test_ablation_markers_match_the_kernel():
+    """``python -m repro_torch.kernels.ablate`` finds each part of the bf16
+    kernel it takes out by its source text; every variant still applies."""
+    from repro_torch.kernels import ablate
+    for name, edits in ablate.VARIANTS.items():
+        src = ablate.variant_source(edits)
+        assert (src == (ablate.build.CSRC / "flash_attention.cu").read_text()
+                ) == (not edits), name
