@@ -29,7 +29,10 @@ Phases, each ending in one line:
      behind a spin kernel, so the host's per-call work is hidden); decode
      rotates over copies of its inputs that exceed the 50 MB L2, so every
      call finds its cache cold, and also prints the older flushed
-     single-pair time. The attention kernels are also checked in fp32
+     single-pair time. ``flash_decode`` is also checked, fp32 and bf16,
+     at the cache phase 7's runs give it (batch 1, prompt + max_new =
+     520 positions, whose last split chunk is ragged) at the first and
+     last decode lengths. The attention kernels are also checked in fp32
      at every shape phase 6's calibration gives them (the kernel suite's
      and the reduced model differential's, from the constants of
      ``repro_torch.analysis.calibrate``);
@@ -50,6 +53,23 @@ Phases, each ending in one line:
      are printed beside the reference's), ``derived.json`` must be
      unchanged, and the committed ``derived_cuda.json`` must equal the
      run's kernel and workload entries (their differentials aside);
+  7. cluster serving: qwen1.5-0.5b at its published width through
+     ``repro_torch.launch.serve``'s cluster path, 2 shards sharing the
+     card under ``cluster-adaptive`` and the seeded ``crash`` fault plan,
+     24 requests 2.5 s of engine time apart, with the cluster oracle
+     attached and the launch counters reset just before and read just
+     after: 0 oracle violations, exact conservation (injected = completed
+     + shed + expired), at least one fault and one shard recovery, both
+     attention kernels launched on every shard's path, and for 4
+     completed requests the greedy tokens of the executor that finished
+     each equal a fresh single-request run of its recorded prompt; then
+     8 requests of the ``multi_tenant`` workload in engine mode must all
+     complete;
+  8. the intermittency lint (``repro_torch.analysis.lint``) on the card,
+     counters reset just before: all three kernels must launch, and the
+     ranked findings must equal the committed ``lint_baseline_cuda.json``
+     (its three untagged ``decode_step`` findings included, which
+     ``--check-baseline`` fails on by design);
 then the ``kernels`` JSON line, the card line, and the result line.
 
 Any failed phase exits non-zero. Nothing runs on the CPU in place of the
@@ -70,6 +90,14 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 ARCH = "qwen1.5-0.5b"
 SERVE = dict(requests=8, prompt=512, max_new=64, batch=4)
+# phase 7: 24 arrivals 2.5 s of engine time apart (a 57.5 s window, in
+# which the seeded crash plan fails and recovers shards), 2 shards
+CLUSTER = dict(shards=2, cluster_policy="cluster-adaptive",
+               fault_plan="crash", requests=24, rate=0.4, prompt=512,
+               max_new=8, batch=4)
+CLUSTER_TOKEN_CHECKS = 4
+WORKLOAD = dict(workload="multi_tenant", requests=8, prompt=512, max_new=8,
+                batch=4)
 CALIB_OUT = ROOT / "build" / "repro_torch" / "derived_cuda.json"
 # decode timings rotate over copies of their inputs that together exceed
 # the H100's 50 MB L2 cache
@@ -556,6 +584,28 @@ def calibration_shape_checks(gen):
     return checks
 
 
+def cluster_decode_checks(dname, dtype, gen):
+    """``flash_decode`` at the cache that phase 7's cluster and workload
+    runs give it: batch 1, ``prompt + max_new`` positions, which the
+    split planner cuts into chunks with a ragged last one. Lengths: the
+    prompt (a whole number of chunks), the first decode step's and the
+    last's."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(ARCH)
+    H, KVH, D = cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim
+    checks = []
+    for P, N in sorted({(run["prompt"], run["max_new"])
+                        for run in (CLUSTER, WORKLOAD)}):
+        S = P + N
+        for length in (P, P + 1, S - 1):
+            checks.append(check_kernel(
+                "flash_decode",
+                decode_case(1, H, KVH, S, D, dtype, [length], gen),
+                f"cluster B1 H{H} KVH{KVH} S{S} D{D} len{length}", dname,
+                False))
+    return checks
+
+
 def kernel_phase():
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -585,6 +635,7 @@ def kernel_phase():
                          "gqa B4 H48 KVH4 S576 D128 len{1,100,511,576}",
                          dname, timed),
         ]
+        results["flash_decode"] += cluster_decode_checks(dname, dtype, gen)
     for name, checks in calibration_shape_checks(gen).items():
         results[name] += checks
     bad = [(n, r["shape"], r["dtype"]) for n, rs in results.items()
@@ -593,12 +644,17 @@ def kernel_phase():
     return results
 
 
+def serve_argv(mode: str, settings: dict) -> list:
+    argv = ["--arch", ARCH, "--mode", mode]
+    for k, v in settings.items():
+        argv += [f"--{k.replace('_', '-')}", str(v)]
+    return argv
+
+
 def serve_phase():
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    argv = ["--arch", ARCH, "--mode", "engine"]
-    for k, v in SERVE.items():
-        argv += [f"--{k.replace('_', '-')}", str(v)]
+    argv = serve_argv("engine", SERVE)
     ops.reset_launch_counts()
     m, ex = serve.main(argv)
     launches = ops.launch_counts()
@@ -825,6 +881,169 @@ def calibration_phase():
     return launches
 
 
+@contextlib.contextmanager
+def counting_executors():
+    """Make every executor the serve path builds count the kernel launches
+    of its own calls (``ex.launches``), from the wrappers' counters."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    base = serve.RealModelExecutor
+
+    class Counting(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.launches = dict.fromkeys(ops.KERNEL_MODULES, 0)
+
+        def _counted(self, call, *args):
+            before = ops.launch_counts()
+            out = call(*args)
+            for name, n in ops.launch_counts().items():
+                self.launches[name] += n - before[name]
+            return out
+
+        def prefill(self, *args):
+            return self._counted(super().prefill, *args)
+
+        def decode(self, *args):
+            return self._counted(super().decode, *args)
+
+    serve.RealModelExecutor = Counting
+    try:
+        yield
+    finally:
+        serve.RealModelExecutor = base
+
+
+def greedy_tokens(ex, prompt, max_new: int) -> list:
+    """A fresh single-request run of ``prompt`` through the executor's
+    model: prefill and ``max_new - 1`` greedy decode steps at batch 1."""
+    import torch
+    model, params = ex.model, ex.params
+    toks = torch.as_tensor(prompt[None], dtype=torch.long,
+                           device=model.device)
+    cache = model.init_cache(params, {"tokens": toks}, 1, ex.max_seq)
+    logits, cache = model.prefill(params, {"tokens": toks}, cache)
+    tok = logits.argmax(-1)[:, None]
+    out = [int(tok)]
+    length = torch.full((1,), toks.shape[1], dtype=torch.int32,
+                        device=model.device)
+    for _ in range(max_new - 1):
+        logits, cache = model.decode_step(params, cache, tok, length)
+        tok, length = logits.argmax(-1)[:, None], length + 1
+        out.append(int(tok))
+    return out
+
+
+def cluster_phase():
+    """Cluster serving with the crash fault plan at the published width,
+    then a workload in engine mode. Returns the cluster run's launches,
+    its summary and the phase's wall seconds."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    with counting_executors():
+        ops.reset_launch_counts()
+        m, executors, oracle = serve.main(serve_argv("cluster", CLUSTER))
+        launches = ops.launch_counts()
+    s = m.summary()
+    n = CLUSTER["requests"]
+    say(f"  cluster: {s['completed']}/{n} completed, shed "
+        f"{s['shed_total']}, expired {s['expired_total']}, leftover "
+        f"{s['leftover']}; faults {dict(m.faults_injected)}, recoveries "
+        f"{s['shard_recoveries']}, drained {s['drained']}, retries "
+        f"{s['retries']}; oracle violations {oracle.n_violations}; "
+        f"launches {launches}")
+    require(oracle.n_violations == 0,
+            f"cluster oracle violations: {oracle.violations[:5]}")
+    require(s["injected"] == n and s["leftover"] == 0
+            and s["injected"] == s["completed"] + s["shed_total"]
+            + s["expired_total"],
+            f"conservation broken: {s['injected']} injected, "
+            f"{s['completed']} completed, {s['shed_total']} shed, "
+            f"{s['expired_total']} expired, {s['leftover']} left over")
+    require(s["faults_injected"] >= 1 and s["shard_recoveries"] >= 1,
+            f"the crash plan injected {s['faults_injected']} faults and "
+            f"{s['shard_recoveries']} recoveries in this window")
+    import torch
+    copies = len({id(ex.params) for ex in executors.values()})
+    require(copies == min(CLUSTER["shards"], torch.cuda.device_count()),
+            f"{copies} copies of the weights for {len(executors)} shards")
+    for name, ex in executors.items():
+        say(f"  {name} on {ex.device}: kernel launches {ex.launches}, "
+            f"finished {len(ex.done)} requests")
+        for kernel in ("flash_attention", "flash_decode"):
+            require(ex.launches[kernel] >= 1,
+                    f"{name} launched {kernel} {ex.launches[kernel]} times")
+    # the executor that finished a request holds its highest attempt
+    finished = {}
+    for name, ex in executors.items():
+        for rid, attempt in ex.done.items():
+            if rid not in finished or attempt > finished[rid][0]:
+                finished[rid] = (attempt, name)
+    require(len(finished) == s["completed"],
+            f"{len(finished)} requests finished on executors, "
+            f"{s['completed']} completed")
+    # the checked requests: those finished on other attempts first, then
+    # one a shard in turn
+    order = sorted(finished, key=lambda r: (-finished[r][0], r))
+    by_shard = {}
+    for rid in order:
+        by_shard.setdefault(finished[rid][1], []).append(rid)
+    picks = []
+    while len(picks) < min(CLUSTER_TOKEN_CHECKS, len(order)):
+        for rids in by_shard.values():
+            if rids and len(picks) < CLUSTER_TOKEN_CHECKS:
+                picks.append(rids.pop(0))
+    for rid in picks:
+        attempt, name = finished[rid]
+        ex = executors[name]
+        got = ex.generated(rid)
+        want = greedy_tokens(ex, ex.prompts[rid], CLUSTER["max_new"])
+        say(f"  request {rid} (attempt {attempt}, finished on {name}): "
+            f"tokens {got} equal a fresh run: {got == want}")
+        require(got == want, f"request {rid}: served {got}, fresh {want}")
+
+    wm, _ = serve.main(serve_argv("engine", WORKLOAD))
+    ws = wm.summary()
+    say(f"  workload {WORKLOAD['workload']!r} (engine): "
+        f"{wm.completed}/{WORKLOAD['requests']} completed, ttft p50/p99 "
+        f"{ws['ttft_p50_ms']:.3f}/{ws['ttft_p99_ms']:.3f} ms, itl p50/p99 "
+        f"{ws['itl_p50_ms']:.3f}/{ws['itl_p99_ms']:.3f} ms")
+    require(wm.completed == WORKLOAD["requests"],
+            f"workload: {wm.completed}/{WORKLOAD['requests']} completed")
+    return launches, s, time.perf_counter() - t0
+
+
+def lint_phase():
+    """``repro_torch.analysis.lint``'s ``run_lint`` on the card, held to
+    the committed baseline. Returns the run's launches and wall seconds."""
+    from repro_torch.analysis import lint
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = lint.run_lint(device="cuda")
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    print(lint.render(result), flush=True)
+    untagged = [f"{f['workload']}/{f['entrypoint']}"
+                for f in result["findings"]
+                if f["kind"] == "untagged-heavy-entrypoint"]
+    say(f"  lint wall {wall:.1f}s, launches {launches}; "
+        f"n_untagged {result['n_untagged']}: {untagged}")
+    for name in KERNELS:
+        require(launches[name] >= 1,
+                f"{name} launched {launches[name]} times in the lint")
+    committed = json.loads(lint.BASELINE_PATH.read_text())
+    same = json.loads(json.dumps(result)) == committed
+    say(f"  the findings equal the committed {lint.BASELINE_PATH.name}: "
+        f"{same}")
+    require(same, f"lint findings differ from {lint.BASELINE_PATH.name}")
+    return launches, wall
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("[chip_smoke] FAIL: src/repro_torch not found; run from the "
@@ -876,6 +1095,20 @@ def main() -> int:
             "(repro_torch.analysis.calibrate):")
         calib_launches = calibration_phase()
         say("phase 6 calibration: all kernels launched and tagged")
+
+        say("phase 7 cluster serving under the crash fault plan:")
+        cluster_launches, cs, cluster_s = cluster_phase()
+        say(f"phase 7 cluster: {cs['completed']}/{CLUSTER['requests']} "
+            f"requests, ttft p50/p99 {cs['ttft_p50_ms']:.3f}/"
+            f"{cs['ttft_p99_ms']:.3f} ms, itl p50/p99 "
+            f"{cs['itl_p50_ms']:.3f}/{cs['itl_p99_ms']:.3f} ms, "
+            f"{cluster_s:.1f}s wall")
+
+        say("phase 8 the intermittency lint on the card "
+            "(repro_torch.analysis.lint):")
+        lint_launches, lint_s = lint_phase()
+        say(f"phase 8 lint: all kernels launched, baseline equal, "
+            f"{lint_s:.1f}s wall")
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -892,7 +1125,9 @@ def main() -> int:
             "name": name, "route": "cuda", **meta,
             "launches": path_launches[name],
             "launches_by_path": {"serve": launches[name],
-                                 "calibrate": calib_launches[name]},
+                                 "calibrate": calib_launches[name],
+                                 "cluster": cluster_launches[name],
+                                 "lint": lint_launches[name]},
             "max_abs_err": main_case["max_abs_err"],
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],

@@ -16,10 +16,12 @@ machine model.
     port's kernels (on the card) and the ported model families (on the
     meta device) and writes ``derived_cuda.json``;
   * :mod:`repro_torch.analysis.derived` — loader for the reference's
-    ``derived.json`` (a byte-identical copy), which serving reads.
-
-The reference's intermittency lint (``analysis/lint.py``) is not ported
-yet.
+    ``derived.json`` (a byte-identical copy), which serving reads;
+  * :mod:`repro_torch.analysis.lint` — the intermittency lint: ranked
+    license-thrash and untagged-heavy-entrypoint findings over the
+    kernel suite and the ported zoo, with the layer loop's repeats folded
+    into one body at ``trips = n_layers``, held against
+    ``lint_baseline_cuda.json``.
 
 Attribute access is lazy (PEP 562): importing
 ``repro_torch.analysis.derived`` does not import the cost model.
@@ -37,6 +39,8 @@ _EXPORTS = {
     "rank_functions": "regions", "record": "regions", "report": "regions",
     "segment": "regions", "tag_heavy": "regions",
     "DifferentialResult": "differential", "differential": "differential",
+    "Finding": "lint", "fold_layers": "lint", "lint_timeline": "lint",
+    "run_lint": "lint", "untagged_findings": "lint",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -44,7 +44,7 @@ import json
 import math
 import sys
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -176,10 +176,10 @@ def kernel_timelines(machine: MachineModel = MachineModel(),
 class _CalibShape:
     """Minimal ShapeConfig stand-in for model.input_specs."""
 
-    def __init__(self, seq_len: int, kind: str):
+    def __init__(self, seq_len: int, kind: str, batch: int = 1):
         self.name = f"calib_{kind}"
         self.seq_len = seq_len
-        self.global_batch = 1
+        self.global_batch = batch
         self.kind = kind
 
 
@@ -191,30 +191,50 @@ def model_timelines(arch: str, prompt: int = CALIB_PROMPT,
     materialized: parameters from ``abstract_params``, inputs from
     ``input_specs``."""
     from repro_torch.configs import get_arch
-    from repro_torch.models.api import build_model
 
     acfg = get_arch(arch)
     if reduced:
         acfg = acfg.reduced()
+    return config_timelines(acfg, prompt, machine=machine)
+
+
+def config_timelines(acfg, prompt: int, *, batch: int = 1,
+                     max_seq: Optional[int] = None,
+                     machine: MachineModel = MachineModel()
+                     ) -> Dict[str, RegionTimeline]:
+    """The prefill and decode entrypoints of the model ``acfg`` describes
+    (:func:`entrypoints`), each segmented into a timeline."""
+    return {name: segment(fn, *args, name=name, machine=machine)
+            for name, (fn, args) in entrypoints(
+                acfg, prompt, batch=batch, max_seq=max_seq).items()}
+
+
+def entrypoints(acfg, prompt: int, *, batch: int = 1,
+                max_seq: Optional[int] = None
+                ) -> Dict[str, Tuple[Callable, tuple]]:
+    """``{"prefill": (fn, args), "decode_step": (fn, args)}`` of the model
+    ``acfg`` describes, on the meta device: a ``batch`` x ``prompt``
+    prefill into a ``max_seq`` cache (default ``prompt + 128``) and one
+    decode step at length ``prompt``."""
+    from repro_torch.models.api import build_model
+
     model = build_model(acfg, "meta")
     params = model.abstract_params()
-    pre_in = model.input_specs(_CalibShape(prompt, "prefill"))
-    dec_in = model.input_specs(_CalibShape(prompt, "decode"))
-    max_seq = prompt + 128
+    pre_in = model.input_specs(_CalibShape(prompt, "prefill", batch))
+    dec_in = model.input_specs(_CalibShape(prompt, "decode", batch))
+    max_seq = max_seq or prompt + 128
 
-    def prefill(p, batch):
-        cache = model.init_cache(p, batch, 1, max_seq)
-        return model.prefill(p, batch, cache)
+    def prefill(p, b):
+        cache = model.init_cache(p, b, batch, max_seq)
+        return model.prefill(p, b, cache)
 
-    cache = model.init_cache(params, pre_in, 1, max_seq)
-    return {
-        "prefill": segment(prefill, params, pre_in, name="prefill",
-                           machine=machine),
-        "decode_step": segment(
-            lambda p, c, t, l: model.decode_step(p, c, t, l),
-            params, cache, dec_in["tokens"], dec_in["lengths"],
-            name="decode_step", machine=machine),
-    }
+    def decode_step(p, c, t, l):
+        return model.decode_step(p, c, t, l)
+
+    cache = model.init_cache(params, pre_in, batch, max_seq)
+    return {"prefill": (prefill, (params, pre_in)),
+            "decode_step": (decode_step, (params, cache, dec_in["tokens"],
+                                          dec_in["lengths"]))}
 
 
 # ------------------------------------------------------------ deriving

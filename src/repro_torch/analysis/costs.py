@@ -76,6 +76,10 @@ class EqnCost:
                        self.bytes + other.bytes,
                        max(self.lanes, other.lanes))
 
+    def scale(self, k: float) -> "EqnCost":
+        return EqnCost(self.mxu_flops * k, self.flops * k, self.bytes * k,
+                       self.lanes)
+
     @property
     def is_zero(self) -> bool:
         return self.flops == 0.0 and self.bytes == 0.0

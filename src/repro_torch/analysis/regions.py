@@ -23,7 +23,9 @@ roofline :class:`MachineModel` (max of compute and memory time).
 
 The port's layers are a Python loop, not a ``scan``: each layer appears as
 its own run of leaves and every region has ``trips == 1``. Totals and
-shares equal those of the scan form. Views and allocations cost nothing
+shares equal those of the scan form. The lint folds the L layer repeats
+back into one body with ``trips = L`` (``analysis.lint.fold_layers``);
+calibration does not. Views and allocations cost nothing
 and are not leaves. The regions' costs sum to the costs of the recorded
 ops exactly (the property tests pin this).
 """
@@ -82,8 +84,11 @@ class MachineModel:
 @dataclass
 class Region:
     """One phase of the timeline. ``start_eqn``/``end_eqn`` are inclusive
-    leaf ordinals in program order (the reference's names); ``trips`` is
-    1 in the port (no ``scan``), kept so the artifacts match."""
+    leaf ordinals in program order (the reference's names); costs and
+    ``est_us`` are totals across ``trips`` iterations. ``segment`` gives
+    ``trips == 1`` everywhere (no ``scan``); the lint's folded timelines
+    (``analysis.lint.fold_layers``) give a layer body ``trips ==
+    n_layers``, as the reference's scan walk does."""
     start_eqn: int
     end_eqn: int
     level: int
@@ -101,6 +106,10 @@ class Region:
     @property
     def unit(self) -> str:
         return LEVEL_NAMES[self.level]
+
+    @property
+    def per_trip_us(self) -> float:
+        return self.est_us / max(self.trips, 1)
 
 
 @dataclass
@@ -143,6 +152,22 @@ class RegionTimeline:
         return sum(r.est_us for r in self.regions
                    if r.level == level) / self.est_us
 
+    def report(self) -> str:
+        lines = [f"{self.name}: {len(self.regions)} regions, "
+                 f"est {self.est_us:.2f} us, heavy share "
+                 f"{self.heavy_share:.2f}",
+                 f"  {'ops':>9s} {'klass':>5s} {'unit':>6s} {'trips':>6s} "
+                 f"{'GFLOP':>9s} {'MB':>8s} {'est_us':>9s}  prims"]
+        for r in self.regions:
+            lines.append(
+                f"  {r.start_eqn:4d}-{r.end_eqn:<4d} {r.klass:>5s} "
+                f"{r.unit:>6s} {r.trips:6d} {r.flops / 1e9:9.3f} "
+                f"{r.bytes / 1e6:8.2f} {r.est_us:9.3f}  "
+                f"{','.join(r.prims[:4])}")
+        for w in self.warnings:
+            lines.append(f"  ! {w}")
+        return "\n".join(lines)
+
 
 # --------------------------------------------------------- segmentation
 
@@ -162,25 +187,29 @@ class _Builder:
         self.ordinal = 0
         self._open: Optional[Region] = None
 
-    def leaf(self, prim: str, cost: EqnCost):
-        est = self.machine.est_us(cost)
+    def leaf(self, prim: str, cost: EqnCost, trips: int = 1):
+        """One op, run ``trips`` times: it merges into the open region
+        only at equal level and equal trips, as in the reference."""
+        total = cost.scale(trips)
+        est = self.machine.est_us(total)
         level = _leaf_level(cost)
         o = self.ordinal
         self.ordinal += 1
         cur = self._open
-        if cur is not None and cur.level == level:
+        if cur is not None and cur.level == level and cur.trips == trips:
             cur.end_eqn = o
-            cur.mxu_flops += cost.mxu_flops
-            cur.flops += cost.flops
-            cur.bytes += cost.bytes
+            cur.mxu_flops += total.mxu_flops
+            cur.flops += total.flops
+            cur.bytes += total.bytes
             cur.est_us += est
             if prim not in cur.prims:
                 cur.prims = cur.prims + (prim,)
             return
         self.flush()
         self._open = Region(start_eqn=o, end_eqn=o, level=level,
-                            mxu_flops=cost.mxu_flops, flops=cost.flops,
-                            bytes=cost.bytes, est_us=est, prims=(prim,))
+                            mxu_flops=total.mxu_flops, flops=total.flops,
+                            bytes=total.bytes, est_us=est, trips=trips,
+                            prims=(prim,))
 
     def flush(self):
         if self._open is not None:

@@ -17,9 +17,23 @@ serves the published configuration on ``--device cuda`` (the default; it
 raises when no GPU is present). ``--reduced --device cpu`` serves the
 reference's CPU-sized config on the CPU, with the kernels' plain versions.
 ``--mode loop`` keeps the plain batched loop (no scheduler) for
-comparison. The reference's ``--mode cluster`` and ``--workload`` come
-with a later slice of the port. Heavy tags come from the reference's
-calibration artifact (``analysis/derived.json``); the port's own
+comparison. ``--mode cluster`` runs ``--shards`` engine shards behind the
+frequency-aware router (``repro_torch.sched.cluster``), each with its own
+executor; shard i runs on ``cuda:(i % device_count)``, so on one card
+every shard shares it, and the model's weights exist once per device.
+``--fault-plan`` injects a registered fault plan (crash, brownout,
+straggler, flaky, storm; ``repro_torch.sched.faults``) and the cluster
+oracle (``repro_torch.sched.replay.ClusterOracle``) audits the run.
+``--workload`` replays a registered scenario or a JSON trace
+(``repro_torch.sched.workload``) in engine or cluster mode:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode cluster \\
+      --shards 2 --fault-plan crash --requests 24 --rate 0.4 \\
+      --prompt 512 --max-new 8 --batch 4
+
+Heavy tags come from the reference's calibration artifact
+(``analysis/derived.json``), and from a fresh ``tag_heavy`` over the
+model's region timelines for an arch that artifact lacks; the port's own
 calibration (``python -m repro_torch.analysis.calibrate``) writes
 ``derived_cuda.json`` beside it and serving does not read that yet.
 """
@@ -36,11 +50,12 @@ from repro_torch import resolve_device
 from repro_torch.analysis import derived
 from repro_torch.configs import get_arch
 from repro_torch.models.api import build_model
-from repro_torch.sched import SpecializedPolicy, Topology
+from repro_torch.sched import (ClusterConfig, ClusterEngine,
+                               ClusterTopology, SpecializedPolicy, Topology)
 from repro_torch.sched.engine import Engine, Request, ServeConfig
 from repro_torch.sched.freq import ENGINE_FREQ_MS
+from repro_torch.sched.workload import load_trace
 
-DEFAULT_HEAVY = ["prefill"]
 ENTRYPOINTS = ("prefill", "decode_step")
 
 
@@ -58,11 +73,22 @@ class RealModelExecutor:
     which becomes the simulated service time. Per-request KV caches live
     here, keyed by request id — the handoff the engine charges between
     pools corresponds to moving one of these caches. Each request's
-    prompt and greedy tokens are kept in ``prompts`` and ``tokens``.
+    prompt and greedy tokens are kept in ``prompts`` and ``tokens``, and
+    ``done`` maps a request to the attempt whose last token this executor
+    produced.
+
+    A retried request (drained off a crashed shard, or its response
+    dropped) starts over with ``attempts`` one higher and its progress
+    reset. Its state here is keyed by attempt, so a new attempt that comes
+    back to this executor is prefilled anew from a fresh prompt instead of
+    decoding on from the old attempt's cache, which would run past
+    ``max_seq``. The earlier attempt's state is dropped, here and on the
+    executors in ``peers`` (the shards of one cluster share that list),
+    as soon as a later attempt starts anywhere, and by ``prune``.
     """
 
     def __init__(self, model, params, vocab: int, prompt_len: int,
-                 max_seq: int, seed: int = 0):
+                 max_seq: int, seed: int = 0, peers: list | None = None):
         self.model = model
         self.params = params
         self.vocab = vocab
@@ -71,20 +97,38 @@ class RealModelExecutor:
         self.device = model.device
         self.rng = np.random.default_rng(seed)
         self.state = {}          # rid -> (cache, last_tok, length)
+        self.attempt = {}        # rid -> the attempt ``state`` belongs to
         self.prompts = {}        # rid -> [prompt_len] int64 numpy
         self.tokens = {}         # rid -> list of [1, 1] token tensors
+        self.done = {}           # rid -> attempt finished here
+        self.live = {}           # rid -> the Request ``state`` belongs to
+        self.peers = peers if peers is not None else []
+        self.peers.append(self)
 
     def generated(self, rid: int) -> list:
         """The greedy tokens request ``rid`` produced, as ints."""
         return [int(t) for t in self.tokens[rid]]
+
+    def prune(self) -> None:
+        """Drop the state of requests that have gone on to a later
+        attempt (retried, or shed or expired on the way): their caches
+        would otherwise stay until the request came back here."""
+        for rid in [rid for rid, req in self.live.items()
+                    if req.attempts != self.attempt[rid]]:
+            del self.state[rid], self.live[rid]
 
     def prefill(self, req: Request, chunk: int, pool: str,
                 ndev: int) -> float:
         # prefill is not chunked: the whole prompt runs (and is charged)
         # on the first chunk call; later chunk calls for the same request
         # are free — total charged time stays the real cost
-        if req.rid in self.state:
+        if req.rid in self.state and \
+                self.attempt[req.rid] == req.attempts:
             return 0.0
+        for ex in self.peers:
+            ex.prune()
+        self.attempt[req.rid] = req.attempts
+        self.live[req.rid] = req
         prompt = self.rng.integers(0, self.vocab, size=(1, self.prompt_len))
         self.prompts[req.rid] = prompt[0]
         toks = torch.as_tensor(prompt, dtype=torch.long, device=self.device)
@@ -114,22 +158,30 @@ class RealModelExecutor:
             if req.generated + 1 >= req.max_new:
                 # request finishes with this token: drop its KV cache so
                 # executor memory scales with concurrency, not total served
-                self.state.pop(req.rid)
+                del self.state[req.rid], self.live[req.rid]
+                self.done[req.rid] = req.attempts
             else:
                 self.state[req.rid] = (cache, tok, length + 1)
         _sync(self.device)
         return (time.perf_counter() - t0) * 1e3
 
 
-def heavy_tags(arch: str):
+def heavy_tags(arch: str, cfg, prompt: int, max_seq: int, batch: int = 1):
     """Heavy-phase tags and where they came from: the calibrated tags of
-    ``derived.json`` for this arch, else the default ``["prefill"]``."""
+    ``derived.json`` for this arch, else a fresh ``tag_heavy`` over the
+    region timelines of the model ``cfg`` describes (a ``batch`` x
+    ``prompt`` prefill into a ``max_seq`` cache and one decode step,
+    traced on the meta device), as the reference's
+    ``identify_heavy_phase`` does."""
     committed = derived.workloads().get(arch)
     if committed:
         return ([t for t in committed["tags"] if t in ENTRYPOINTS],
                 "derived.json")
-    return list(DEFAULT_HEAVY), (f"{arch!r} not in derived.json: "
-                                 f"default {DEFAULT_HEAVY}")
+    from repro_torch.analysis.calibrate import config_timelines
+    from repro_torch.analysis.regions import tag_heavy
+    tls = config_timelines(cfg, prompt, batch=batch, max_seq=max_seq)
+    return (tag_heavy([tls[name] for name in ENTRYPOINTS]),
+            "fresh tag_heavy")
 
 
 def engine_freq_config(arch: str):
@@ -148,7 +200,7 @@ def _print_identification(tags, src) -> str:
           "repro_torch.analysis.calibrate; tags come from the calibration "
           "artifact")
     print(f"[serve] analyzer-derived heavy tags ({src}): {tags}")
-    return tags[0] if tags else DEFAULT_HEAVY[0]
+    return tags[0] if tags else ENTRYPOINTS[0]
 
 
 def warm_up(model, params, prompt: int, max_seq: int) -> float:
@@ -166,13 +218,35 @@ def warm_up(model, params, prompt: int, max_seq: int) -> float:
     return time.perf_counter() - t0
 
 
+def requests(args):
+    """The requests to serve: fixed-interval arrivals at ``--rate``, or
+    the first ``--requests`` of a ``--workload`` (a registered scenario
+    name or a JSON trace path). A trace supplies arrival times, tenants
+    and per-tenant deadline windows; its token counts are clamped to
+    ``--prompt`` and ``--max-new`` (the executor runs whole prompts of
+    one length)."""
+    P, N = args.prompt, args.max_new
+    if not args.workload:
+        interval_ms = 1000.0 / args.rate
+        return [Request(rid=i, arrive_ms=i * interval_ms, prompt_len=P,
+                        max_new=N) for i in range(args.requests)]
+    trace = load_trace(args.workload, seed=args.seed)
+    reqs = [Request(rid=r.rid, arrive_ms=r.arrive_ms, prompt_len=P,
+                    max_new=N, tenant=r.tenant,
+                    deadline_window_ms=r.deadline_window_ms)
+            for r in trace.requests[:args.requests]]
+    print(f"[serve] workload {args.workload!r}: {len(reqs)} requests "
+          f"replayed (of {len(trace.requests)} in the trace)")
+    return reqs
+
+
 def run_engine(args, cfg, model, params):
     """Real-model serving through the Policy/Topology engine. Returns the
     engine's metrics and the executor (which holds every request's
     tokens)."""
     P, N = args.prompt, args.max_new
     max_seq = P + N
-    tags, src = heavy_tags(args.arch)
+    tags, src = heavy_tags(args.arch, cfg, P, max_seq, args.batch)
     heavy = _print_identification(tags, src)
     print(f"[serve] tagging {heavy!r} as the heavy (AVX-analogue) phase;"
           " SpecializedPolicy confines it to the prefill pool")
@@ -182,9 +256,7 @@ def run_engine(args, cfg, model, params):
     policy = SpecializedPolicy()
     ex = RealModelExecutor(model, params, cfg.vocab, P, max_seq,
                            seed=args.seed)
-    interval_ms = 1000.0 / args.rate
-    reqs = [Request(rid=i, arrive_ms=i * interval_ms, prompt_len=P,
-                    max_new=N) for i in range(args.requests)]
+    reqs = requests(args)
     eng = Engine(topo, policy,
                  cfg=ServeConfig(prefill_chunk=P,
                                  decode_batch_max=args.batch,
@@ -215,12 +287,116 @@ def run_engine(args, cfg, model, params):
     return m, ex
 
 
+def shard_devices(n_shards: int, device) -> list:
+    """The device of each shard: shard i runs on ``cuda:(i %
+    device_count)`` when ``device`` is ``cuda`` without an index, so on
+    one card every shard shares ``cuda:0``; any other device (``cpu``,
+    ``cuda:1``) serves every shard."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        n = torch.cuda.device_count()
+        return [torch.device("cuda", i % n) for i in range(n_shards)]
+    return [device] * n_shards
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def run_cluster(args, cfg, model, params):
+    """Real-model cluster serving: N shards, each a two-pool engine with
+    its own executor (its own caches, prompts and tokens), behind the
+    SLO-aware router, with the cluster oracle attached. The model and its
+    weights exist once per device and are shared by the shards on it.
+    Returns the cluster's metrics, the executors by shard name and the
+    oracle."""
+    from repro_torch.sched.replay import ClusterOracle
+
+    P, N = args.prompt, args.max_new
+    max_seq = P + N
+    tags, src = heavy_tags(args.arch, cfg, P, max_seq, args.batch)
+    heavy = _print_identification(tags, src)
+    print(f"[serve] tagging {heavy!r} as the heavy phase; "
+          f"{args.shards}-shard cluster under {args.cluster_policy!r}")
+
+    cluster = ClusterTopology.homogeneous(args.shards, 2, 1)
+    home = model.device
+    if home.type == "cuda" and home.index is None:
+        home = torch.device("cuda", torch.cuda.current_device())
+    on_device = {home: (model, params)}
+    executors, peers = {}, []
+    for spec, dev in zip(cluster.shards, shard_devices(args.shards,
+                                                       model.device)):
+        if dev not in on_device:
+            on_device[dev] = (build_model(cfg, dev),
+                              _to_device(params, dev))
+        shard_model, shard_params = on_device[dev]
+        executors[spec.name] = RealModelExecutor(
+            shard_model, shard_params, cfg.vocab, P, max_seq,
+            seed=args.seed, peers=peers)
+        print(f"[serve] {spec.name}: {spec.topology.n_units} pools units, "
+              f"device {dev}")
+    for dev, (m_, p_) in on_device.items():
+        print(f"[serve] warm-up on {dev}: "
+              f"{warm_up(m_, p_, P, max_seq):.2f}s")
+    print()
+
+    reqs = requests(args)
+    ccfg = ClusterConfig(serve=ServeConfig(
+        prefill_chunk=P, decode_batch_max=args.batch,
+        freq=engine_freq_config(args.arch)))
+    eng = ClusterEngine(cluster, args.cluster_policy, cfg=ccfg,
+                        executors=executors)
+    oracle = ClusterOracle(ccfg.serve.deadline_window_ms)
+    plan = None
+    if args.fault_plan:
+        from repro_torch.sched.faults import resolve_fault_plan
+        plan = resolve_fault_plan(args.fault_plan)
+        print(f"[serve] fault plan {plan.name!r} "
+              f"(hash {plan.plan_hash})")
+    t0 = time.perf_counter()
+    if plan is None:
+        m = eng.run(reqs, oracle=oracle)  # no horizon: run to completion
+    else:
+        # fault injection needs a finite horizon: faults stop with the
+        # arrival window, the drain tail lets recovery/retries settle
+        last_arrive = max(r.arrive_ms for r in reqs) if reqs else 0.0
+        m = eng.run(reqs, last_arrive + 60_000.0, oracle=oracle,
+                    fault_plan=plan, fault_horizon_ms=last_arrive)
+    wall = time.perf_counter() - t0
+    for ex in executors.values():
+        ex.prune()
+    s = m.summary()
+    print(f"[serve] {s['completed']}/{len(reqs)} requests in "
+          f"{wall:.1f}s wall")
+    print(f"[serve] ttft_p50={s['ttft_p50_ms']:.1f}ms "
+          f"ttft_p99={s['ttft_p99_ms']:.1f}ms "
+          f"itl_p50={s['itl_p50_ms']:.1f}ms "
+          f"itl_p99={s['itl_p99_ms']:.1f}ms "
+          f"holds={s['router_holds']}")
+    if plan is not None:
+        print(f"[serve] faults: injected={s['faults_injected']} "
+              f"recoveries={s['shard_recoveries']} "
+              f"drained={s['drained']} retries={s['retries']} "
+              f"dropped={s['dropped']} shed={s['shed_total']} "
+              f"expired={s['expired_total']}")
+    for name, sh in m.shard_summaries().items():
+        print(f"[serve]   {name}: routed={sh['routed']} "
+              f"done={sh['completed']} f={sh['avg_freq_ghz']:.2f}GHz "
+              f"residency={sh['license_residency']:.2f} "
+              f"E={sh['energy_proxy']:.0f}")
+    print(f"[serve] oracle violations={oracle.n_violations}")
+    return m, executors, oracle
+
+
 def run_loop(args, cfg, model, params):
     """Plain batched loop (no scheduler), kept for comparison. Returns
     the prompts and greedy tokens of every batch."""
     B, P, N = args.batch, args.prompt, args.max_new
     max_seq = P + N
-    tags, src = heavy_tags(args.arch)
+    tags, src = heavy_tags(args.arch, cfg, P, max_seq, B)
     heavy = _print_identification(tags, src)
     print(f"[serve] tagging {heavy!r} as the heavy phase")
     print(f"[serve] warm-up: {warm_up(model, params, P, max_seq):.2f}s\n")
@@ -266,13 +442,29 @@ def run_loop(args, cfg, model, params):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen1.5-0.5b")
-    ap.add_argument("--mode", choices=("engine", "loop"), default="engine")
+    ap.add_argument("--mode", choices=("engine", "loop", "cluster"),
+                    default="engine")
+    ap.add_argument("--shards", type=int, default=2,
+                    help="cluster mode: number of engine shards")
+    ap.add_argument("--cluster-policy", default="cluster-adaptive",
+                    help="cluster mode: registered cluster policy "
+                         "(cluster-rr, cluster-queue, cluster-freq, "
+                         "cluster-adaptive)")
+    ap.add_argument("--fault-plan", default=None,
+                    help="cluster mode: registered fault plan to "
+                         "inject (crash, brownout, straggler, flaky, "
+                         "storm, ... — see repro_torch.sched.faults)")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--prompt", type=int, default=64)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--rate", type=float, default=8.0,
                     help="request arrival rate (req/s of engine time)")
+    ap.add_argument("--workload", default=None,
+                    help="arrival pattern: a registered scenario name "
+                         "(steady, bursty, diurnal, heavy_tail, "
+                         "multi_tenant) or a path to a JSON trace; "
+                         "default: fixed-interval arrivals at --rate")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the random weights and the prompts")
     ap.add_argument("--device", default="cuda",
@@ -299,6 +491,8 @@ def main(argv=None):
           f"{cfg.param_dtype} on {device}")
     if args.mode == "engine":
         return run_engine(args, cfg, model, params)
+    if args.mode == "cluster":
+        return run_cluster(args, cfg, model, params)
     return run_loop(args, cfg, model, params)
 
 

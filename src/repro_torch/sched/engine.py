@@ -54,7 +54,7 @@ class Request:
     arrive_ms: float
     prompt_len: int
     max_new: int
-    # SLO class (repro.sched.workload): a per-request deadline window
+    # SLO class (repro_torch.sched.workload): a per-request deadline window
     # overrides ServeConfig.deadline_window_ms in the EDF order
     tenant: str = "default"
     deadline_window_ms: Optional[float] = None
@@ -210,7 +210,7 @@ class Engine:
 
     The engine is *shard-embeddable*: the run lifecycle is split into
     ``begin_run`` / ``handle`` / ``finish`` with an injectable event
-    sink, so a :class:`repro.sched.cluster.ClusterEngine` can interleave
+    sink, so a :class:`repro_torch.sched.cluster.ClusterEngine` can interleave
     N engines on ONE global heap — each shard pushes its events through
     the cluster's sink instead of a private heap, and the cluster loop
     dispatches popped events back to ``shard.handle``. Standalone
@@ -387,7 +387,7 @@ class Engine:
             horizon_ms: Optional[float] = None,
             oracle: Optional[object] = None) -> ServeMetrics:
         """Replay ``requests``; an optional ``oracle`` (duck-typed, see
-        ``repro.sched.replay.EngineOracle``) observes every scheduling
+        ``repro_torch.sched.replay.EngineOracle``) observes every scheduling
         event and checks engine invariants — EDF order, one handoff per
         pool transfer, work conservation, capability respect."""
         self.begin_run(requests, horizon_ms, oracle)

@@ -533,7 +533,7 @@ POLICIES: Dict[str, type] = {}
 
 def register_policy(name: str, factory) -> None:
     """Register a policy factory under ``name`` for the differential
-    replay harness (`repro.sched.replay`) and any registry-driven
+    replay harness (`repro_torch.sched.replay`) and any registry-driven
     consumer. Re-registering a name overwrites it (tests rely on this
     to inject instrumented policies)."""
     POLICIES[name] = factory

@@ -18,7 +18,7 @@ and *whether* it does — placement, steal eligibility, preemption — is
 the :class:`repro_torch.sched.policy.Policy`'s decision. This is the
 mechanism/policy split Gottschlag & Bellosa's follow-up argues for.
 
-One level up, :class:`repro.sched.cluster.ClusterTopology` composes
+One level up, :class:`repro_torch.sched.cluster.ClusterTopology` composes
 these per-shard: shards partition a fleet's devices the way pools
 partition a node's, with the same frozen/serializable discipline
 (``to_dict``/``from_dict`` round-trip at both levels) and its own

@@ -50,6 +50,13 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     assert res["bad"] == []
     assert set(res["modules"]) == set(_port_modules())
     assert "repro_torch.launch.serve" in res["modules"]
+    assert {f"repro_torch.{m}" for m in (
+        "sched.workload", "sched.cluster", "sched.faults", "sched.replay",
+        "sched.sweep", "core.task", "core.runqueue", "core.license",
+        "core.muqss", "core.simulator", "core.workloads",
+        "core.perfcounters", "core.experiments", "core.static_analysis",
+        "analysis.lint", "examples.identify_hot_code")} <= \
+        set(res["modules"])
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -82,6 +89,22 @@ def test_serve_without_gpu_raises_instead_of_using_the_cpu():
         pytest.skip("a GPU is present: the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--reduced", "--requests", "1"])
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("repro_torch.launch.serve", ["--reduced", "--mode", "cluster",
+                                  "--requests", "1"]),
+    ("repro_torch.analysis.lint", []),
+    ("repro_torch.examples.identify_hot_code", []),
+], ids=["serve-cluster", "lint", "identify_hot_code"])
+def test_entry_point_without_gpu_raises(module, argv):
+    import importlib
+
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        importlib.import_module(module).main(argv)
 
 
 def test_chip_smoke_fails_without_the_repository(tmp_path):

@@ -61,9 +61,12 @@ def test_loop_tokens_match_reference_greedy():
 
 
 def test_heavy_tags_and_freq_levels_come_from_the_artifact():
-    assert serve.heavy_tags("qwen1.5-0.5b") == (["prefill"], "derived.json")
-    tags, src = serve.heavy_tags("no-such-arch")
-    assert tags == ["prefill"] and "default" in src
+    from repro_torch.configs import get_arch
+    cfg = get_arch("qwen1.5-0.5b").reduced()
+    assert serve.heavy_tags("qwen1.5-0.5b", cfg, 16, 20) == \
+        (["prefill"], "derived.json")
+    tags, src = serve.heavy_tags("no-such-arch", cfg, 16, 20)
+    assert "prefill" in tags and src == "fresh tag_heavy"
     from repro.launch.serve import engine_freq_config as jfreq
     for arch in ("qwen1.5-0.5b", "deepseek-v3-671b", "no-such-arch"):
         assert serve.engine_freq_config(arch).freqs_ghz == \
