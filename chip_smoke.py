@@ -16,8 +16,10 @@ Phases, each ending in one line:
      call;
   3. the kernels: each kernel against its plain PyTorch version on the card.
      The attention kernels in fp32 (tolerance 2e-5, TF32 off) and bf16
-     (2e-2 prefill, 3e-2 decode), at the serving shapes of qwen1.5-0.5b
-     and at a GQA shape of starcoder2-15b's widths, with one PyTorch
+     (2e-2 prefill, 3e-2 decode), at the serving shapes of qwen1.5-0.5b,
+     at a GQA shape of starcoder2-15b's widths and ``flash_attention`` at
+     deepseek-v3's MLA prefill shape (B1 H128 S512, q/k head dim 192, v
+     head dim 128, v a slice of the decompressed K/V), with one PyTorch
      library call's time (``scaled_dot_product_attention``, a yardstick
      the port never calls). ``chacha20`` bit-exact (0 mismatched words) on
      the RFC 7539 vector, across the 2^32 counter wrap at a block count
@@ -46,7 +48,7 @@ Phases, each ending in one line:
      kernels' plain versions swapped in, on the card; and the served bf16
      ``unembed`` against fp32 sums, to show its logits stay fp32;
   6. calibration: ``repro_torch.analysis.calibrate.main`` on the card at
-     the full published configs of the five ported archs, with the launch
+     the full published configs of the seven ported archs, with the launch
      counters reset just before and read just after: all three kernels
      must launch, each kernel and every arch's ``prefill`` must be tagged
      heavy as in the reference's ``derived.json`` (``decode_step``'s tags
@@ -70,6 +72,17 @@ Phases, each ending in one line:
      ranked findings must equal the committed ``lint_baseline_cuda.json``
      (its three untagged ``decode_step`` findings included, which
      ``--check-baseline`` fails on by design);
+  9. the moe family at full width, phases 4-8's models freed first:
+     grok-1-314b (4 of 64 layers) and deepseek-v3-671b (2 of 61 layers)
+     in bf16, one after the other, each served through
+     ``repro_torch.launch.serve.run_engine`` (4 requests, 512-token
+     prompts, 16 new tokens, batch 2) with the launch counters reset just
+     before and read just after (``flash_attention`` must launch for
+     both, ``flash_decode`` for grok and never for deepseek, whose MLA
+     decode is matrix products), its memory and a profiled prefill and
+     decode steps printed; then each at 1 layer in fp32 through the
+     end-to-end check of phase 5, with the routing choices the kernel and
+     plain runs share;
 then the ``kernels`` JSON line, the card line, and the result line.
 
 Any failed phase exits non-zero. Nothing runs on the CPU in place of the
@@ -99,6 +112,9 @@ CLUSTER_TOKEN_CHECKS = 4
 WORKLOAD = dict(workload="multi_tenant", requests=8, prompt=512, max_new=8,
                 batch=4)
 CALIB_OUT = ROOT / "build" / "repro_torch" / "derived_cuda.json"
+# phase 9: the moe family at full width, depth cut to what one H100 holds
+MOE_DEPTH = {"grok-1-314b": 4, "deepseek-v3-671b": 2}
+MOE_SERVE = dict(requests=4, prompt=512, max_new=16, batch=2)
 # decode timings rotate over copies of their inputs that together exceed
 # the H100's 50 MB L2 cache
 ROTATE_BYTES = 75e6
@@ -228,22 +244,27 @@ def card_line() -> str:
     return out[0]
 
 
-def prefill_case(B, H, KVH, S, D, dtype, causal, gen, contiguous=False):
+def prefill_case(B, H, KVH, S, D, dtype, causal, gen, contiguous=False,
+                 Dv=None):
     """q/k/v as transpose views of [B,S,*,D] tensors, as the model passes
     them, or ``contiguous`` [B,*,S,D] tensors, as calibration passes
-    them. Returns (args, kwargs, bytes, flops)."""
+    them. With a value head dim ``Dv`` of its own (MLA), v is the slice
+    of a [B,S,KVH,D'+Dv] tensor that MLA's decompression gives (D' = 128,
+    MLA's nope dim). Returns (args, kwargs, bytes, flops)."""
     import torch
 
-    def make(heads):
-        t = torch.randn(B, S, heads, D, generator=gen, device="cuda")
+    def make(heads, d=D):
+        t = torch.randn(B, S, heads, d, generator=gen, device="cuda")
         t = t.to(dtype).transpose(1, 2)
         return t.contiguous() if contiguous else t
 
-    q, k, v = make(H), make(KVH), make(KVH)
+    q, k = make(H), make(KVH)
+    v = make(KVH) if Dv is None else make(KVH, 128 + Dv)[..., 128:]
+    Dv = Dv or D
     item = q.element_size()
-    nbytes = item * (2 * B * H * S * D + 2 * B * KVH * S * D)
+    nbytes = item * (B * H * S * (D + Dv) + B * KVH * S * (D + Dv))
     pairs = S * (S + 1) // 2 if causal else S * S
-    flops = 4 * B * H * D * pairs
+    flops = 2 * B * H * (D + Dv) * pairs
     return (q, k, v), {"causal": causal}, nbytes, flops
 
 
@@ -527,8 +548,9 @@ def kernel_build_report() -> None:
             f"{fn} {u.get('registers')} regs, {u.get('spills')} B spilled, "
             f"{u.get('smem')} B static smem" for fn, u in sorted(use.items()))
             or "not measured (the library was not built by this process)"))
-    say("  flash_attention dynamic shared memory a block, D 16/32/64/128: "
-        + "; ".join(f"{dt}{gl} {[flash_attention.smem_bytes(dt, d, g) for d in (16, 32, 64, 128)]}"
+    say("  flash_attention dynamic shared memory a block, (Dqk, Dv) "
+        f"{list(build.ATTENTION_DIMS)}: "
+        + "; ".join(f"{dt}{gl} {[flash_attention.smem_bytes(dt, d, dv, g) for d, dv in build.ATTENTION_DIMS]}"
                     for dt, g, gl in (("float32", 1, ""),
                                       ("bfloat16", 1, " G odd"),
                                       ("bfloat16", 2, " G even"))))
@@ -606,6 +628,41 @@ def cluster_decode_checks(dname, dtype, gen):
     return checks
 
 
+def moe_shape_checks(dname, dtype, gen):
+    """The attention kernels at the shapes phase 9's archs give them (heads
+    from the published configs, sizes from ``MOE_SERVE``): the causal
+    prefill of one prompt, and for GQA decode over the executor's batch-1
+    cache of ``prompt + max_new`` positions, which the split planner cuts
+    into chunks with a ragged last one. Lengths: the prompt, the first
+    decode step's, one midway and the last's."""
+    from repro_torch.configs import get_arch
+    P, N = MOE_SERVE["prompt"], MOE_SERVE["max_new"]
+    S = P + N
+    checks = {"flash_attention": [], "flash_decode": []}
+    for arch in MOE_DEPTH:
+        cfg = get_arch(arch)
+        if cfg.attention == "mla":
+            H, m = cfg.n_heads, cfg.mla
+            D, Dv = m.nope_head_dim + m.rope_head_dim, m.v_head_dim
+            checks["flash_attention"].append(check_kernel(
+                "flash_attention",
+                prefill_case(1, H, H, P, D, dtype, True, gen, Dv=Dv),
+                f"{arch} B1 H{H} KVH{H} S{P} Dqk{D} Dv{Dv} causal", dname,
+                False))
+            continue
+        H, KVH, D = cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim
+        checks["flash_attention"].append(check_kernel(
+            "flash_attention", prefill_case(1, H, KVH, P, D, dtype, True, gen),
+            f"{arch} B1 H{H} KVH{KVH} S{P} D{D} causal", dname, False))
+        for length in (P, P + 1, P + N // 2, S - 1):
+            checks["flash_decode"].append(check_kernel(
+                "flash_decode",
+                decode_case(1, H, KVH, S, D, dtype, [length], gen),
+                f"{arch} B1 H{H} KVH{KVH} S{S} D{D} len{length}", dname,
+                False))
+    return checks
+
+
 def kernel_phase():
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -624,6 +681,16 @@ def kernel_phase():
             check_kernel("flash_attention",
                          prefill_case(2, 48, 4, 77, 128, dtype, False, gen),
                          "gqa B2 H48 KVH4 S77 D128 full", dname, False),
+            check_kernel("flash_attention",
+                         prefill_case(1, 128, 128, 512, 192, dtype, True,
+                                      gen, Dv=128),
+                         "mla B1 H128 KVH128 S512 Dqk192 Dv128 causal",
+                         dname, timed),
+            check_kernel("flash_attention",
+                         prefill_case(2, 4, 4, 77, 192, dtype, False, gen,
+                                      Dv=128),
+                         "mla B2 H4 KVH4 S77 Dqk192 Dv128 full", dname,
+                         False),
         ]
         results["flash_decode"] += [
             check_kernel("flash_decode",
@@ -636,6 +703,8 @@ def kernel_phase():
                          dname, timed),
         ]
         results["flash_decode"] += cluster_decode_checks(dname, dtype, gen)
+        for name, checks in moe_shape_checks(dname, dtype, gen).items():
+            results[name] += checks
     for name, checks in calibration_shape_checks(gen).items():
         results[name] += checks
     bad = [(n, r["shape"], r["dtype"]) for n, rs in results.items()
@@ -674,11 +743,11 @@ def serve_phase():
     return m, ex, launches
 
 
-def profile_phase(model, params, steps: int = 8):
+def profile_phase(model, params, steps: int = 8, top: int = 5):
     """Where a serving step's time goes: one prefill of the serve prompt
     and ``steps`` decode steps of one request, traced with
     ``torch.profiler``. Prints wall time, device busy time (union of the
-    kernels' intervals), the idle share and the top kernels."""
+    kernels' intervals), the idle share and the ``top`` kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -708,8 +777,8 @@ def profile_phase(model, params, steps: int = 8):
         by_name = {}
         for e in kern:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-        return wall_us, busy, len(kern), top
+        return wall_us, busy, len(kern), sorted(
+            by_name.items(), key=lambda kv: -kv[1])[:top]
 
     state = {}
 
@@ -727,7 +796,7 @@ def profile_phase(model, params, steps: int = 8):
 
     prefill()                                       # warm
     for name, fn, n in (("prefill", prefill, 1), ("decode", decode, steps)):
-        wall, busy, nk, top = traced(fn)
+        wall, busy, nk, heavy = traced(fn)
         if nk == 0:
             say(f"  {name}: wall {wall / n / 1e3:.3f} ms/step; device time "
                 "not measured (the profiler saw no CUDA kernels)")
@@ -735,7 +804,7 @@ def profile_phase(model, params, steps: int = 8):
         say(f"  {name}: wall {wall / n / 1e3:.3f} ms/step, device busy "
             f"{busy / n / 1e3:.3f} ms/step, idle share {1 - busy / wall:.3f}, "
             f"{nk / n:.0f} kernels/step; top: " + "; ".join(
-                f"{k[:48]} {v / n:.1f} us" for k, v in top))
+                f"{k[:48]} {v / n:.1f} us" for k, v in heavy))
 
 
 @contextlib.contextmanager
@@ -751,15 +820,48 @@ def plain_attention():
         ops.flash_attention, ops.flash_decode = saved
 
 
-def end_to_end_phase(steps: int = 8, prompt: int = 512):
-    """Published width and depth in fp32: prefill + greedy decode through
-    the kernels, against the same weights with the plain versions."""
+@contextlib.contextmanager
+def recorded_routes(into: list):
+    """Append the expert ids of every MoE routing call (``moe._route``)
+    to ``into``."""
+    from repro_torch.models import moe
+    route = moe._route
+
+    def recording(*args, **kwargs):
+        w, ids, aux = route(*args, **kwargs)
+        into.append(ids)
+        return w, ids, aux
+
+    moe._route = recording
+    try:
+        yield
+    finally:
+        moe._route = route
+
+
+def routing_agreement(a: list, b: list) -> tuple:
+    """(choices of run ``a`` that run ``b`` made for the same token and
+    routing call, all choices): per token, the size of the intersection
+    of the two top-k sets."""
+    same = total = 0
+    for x, y in zip(a, b, strict=True):
+        hit = (x[:, :, None] == y[:, None, :]).any(-1)
+        same += int(hit.sum())
+        total += x.numel()
+    return same, total
+
+
+def end_to_end_phase(cfg=None, steps: int = 8, prompt: int = 512):
+    """Full width in fp32 (``cfg``'s depth, the published qwen1.5-0.5b by
+    default): prefill + greedy decode through the kernels, against the
+    same weights with the plain versions. For an MoE config it also
+    prints how many routing choices the two runs share."""
     import dataclasses
 
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models.api import build_model
-    cfg = dataclasses.replace(get_arch(ARCH), param_dtype="float32",
+    cfg = dataclasses.replace(cfg or get_arch(ARCH), param_dtype="float32",
                               compute_dtype="float32")
     model = build_model(cfg, "cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(1))
@@ -767,29 +869,40 @@ def end_to_end_phase(steps: int = 8, prompt: int = 512):
     toks = torch.randint(0, cfg.vocab, (2, prompt), generator=gen,
                          device="cuda")
 
-    def run():
-        cache = model.init_cache(params, None, 2, prompt + steps)
-        logits, cache = model.prefill(params, {"tokens": toks}, cache)
-        out, tok = [logits], logits.argmax(-1)[:, None]
-        lengths = torch.full((2,), prompt, dtype=torch.int32, device="cuda")
-        for _ in range(steps):
-            logits, cache = model.decode_step(params, cache, tok, lengths)
-            out.append(logits)
-            tok, lengths = logits.argmax(-1)[:, None], lengths + 1
+    def run(routes):
+        with recorded_routes(routes):
+            cache = model.init_cache(params, None, 2, prompt + steps)
+            logits, cache = model.prefill(params, {"tokens": toks}, cache)
+            out, tok = [logits], logits.argmax(-1)[:, None]
+            lengths = torch.full((2,), prompt, dtype=torch.int32,
+                                 device="cuda")
+            for _ in range(steps):
+                logits, cache = model.decode_step(params, cache, tok,
+                                                  lengths)
+                out.append(logits)
+                tok, lengths = logits.argmax(-1)[:, None], lengths + 1
         return torch.stack(out)
 
-    got = run()
+    routes_k, routes_p = [], []
+    got = run(routes_k)
     with plain_attention():
-        want = run()
+        want = run(routes_p)
     require(bool(torch.isfinite(got).all()), "end-to-end logits not finite")
     err = (got - want).abs().max().item()
     tol = 1e-3 * max(1.0, want.abs().max().item())
     same = bool((got.argmax(-1) == want.argmax(-1)).all())
-    say(f"  end-to-end fp32 {cfg.n_layers} layers, prompt {prompt} + "
-        f"{steps} decode steps x 2 sequences: max logit err {err:.3g} "
-        f"(tol {tol:.3g}), greedy tokens equal: {same}")
-    require(err <= tol and same, "kernel path disagrees with the plain "
-            "path at the published width")
+    routed = ""
+    if cfg.moe is not None:
+        agree, total = routing_agreement(routes_k, routes_p)
+        routed = (f"; routing choices shared by both runs: {agree}/{total}"
+                  f" ({cfg.moe.top_k} of {cfg.moe.n_experts} a token)")
+    say(f"  end-to-end fp32 {cfg.name} {cfg.n_layers} layer(s) at width "
+        f"{cfg.d_model}, prompt {prompt} + {steps} decode steps x 2 "
+        f"sequences: max logit err {err:.3g} (tol {tol:.3g}), max |logit| "
+        f"{want.abs().max().item():.3g}, greedy tokens equal: {same}"
+        + routed)
+    require(err <= tol and same, f"{cfg.name}: kernel path disagrees with "
+            "the plain path at full width")
     return err
 
 
@@ -1016,6 +1129,114 @@ def cluster_phase():
     return launches, s, time.perf_counter() - t0
 
 
+def moe_phase():
+    """The moe family at full width: for each arch in turn, its published
+    config cut to ``MOE_DEPTH`` layers in bf16, served through
+    ``serve.run_engine`` with the launch counters reset just before and
+    read just after, a profiled prefill and decode steps, then freed; and
+    the fp32 end-to-end check at 1 layer. Returns each arch's serving
+    launches."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    out = {}
+    for arch, depth in MOE_DEPTH.items():
+        free()
+        cfg = dataclasses.replace(get_arch(arch), n_layers=depth)
+        model = build_model(cfg, "cuda")
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weights = torch.cuda.memory_allocated()
+        say(f"  {arch}: {depth} of {get_arch(arch).n_layers} layers at "
+            f"d {cfg.d_model}, {cfg.param_count() / 1e9:.2f}B params, "
+            f"{weights / 1e9:.2f} GB of bf16 weights on the card, "
+            f"initialised in {init_s:.1f}s (peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
+        args = serve.build_parser().parse_args(
+            ["--arch", arch] + serve_argv("engine", MOE_SERVE)[2:])
+        ops.reset_launch_counts()
+        m, ex = serve.run_engine(args, cfg, model, params)
+        launches = ops.launch_counts()
+        s = m.summary()
+        n, N = MOE_SERVE["requests"], MOE_SERVE["max_new"]
+        say(f"  {arch} serving: {m.completed}/{n} requests, ttft p50/p99 "
+            f"{s['ttft_p50_ms']:.3f}/{s['ttft_p99_ms']:.3f} ms, itl p50/p99 "
+            f"{s['itl_p50_ms']:.3f}/{s['itl_p99_ms']:.3f} ms, launches "
+            f"{launches}, max memory allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        require(m.completed == n, f"{arch}: {m.completed}/{n} completed")
+        for rid in range(n):
+            toks = ex.generated(rid)
+            require(len(toks) == N and all(0 <= t < cfg.vocab for t in toks),
+                    f"{arch} request {rid}: tokens {toks[:8]}...")
+        require(launches["flash_attention"] >= n * depth,
+                f"{arch}: flash_attention launched "
+                f"{launches['flash_attention']} times")
+        if cfg.attention == "mla":      # absorbed decode: matrix products
+            require(launches["flash_decode"] == 0,
+                    f"{arch}: flash_decode launched {launches['flash_decode']}"
+                    " times on MLA's path")
+        else:
+            require(launches["flash_decode"] >= n * (N - 1) * depth,
+                    f"{arch}: flash_decode launched "
+                    f"{launches['flash_decode']} times")
+        say(f"  {arch} where a serving step's time goes (torch.profiler):")
+        profile_phase(model, params, steps=4, top=8)
+        if cfg.attention == "mla":
+            mla_decode_check(cfg, params)
+        out[arch] = launches
+        del model, params, ex, m
+        free()
+        end_to_end_phase(dataclasses.replace(get_arch(arch), n_layers=1))
+    free()
+    return out
+
+
+def mla_decode_check(cfg, params, tol: float = 2e-2):
+    """The served absorbed MLA decode (layer 0's weights, full width, the
+    compute dtype) against the decompressing form, ``mla_decode_naive``,
+    on one random latent cache of the executor's length: a batch of 2 at
+    the prompt's length and the last step's, held at ``tol`` of the
+    output's scale (the bf16 tolerance of the kernel checks)."""
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models.transformer import layer_slices
+    p = layer_slices(params["layers"], cfg.n_layers)[0]["attn"]
+    P, N = MOE_SERVE["prompt"], MOE_SERVE["max_new"]
+    dtype = p["wkv_b"]["w"].dtype
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cache = attn.mla_init_cache(cfg, 2, P + N, dtype, "cuda")
+    for t in cache.values():
+        t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    x = torch.randn(2, 1, cfg.d_model, generator=gen, device="cuda")
+    lengths = torch.tensor([P, P + N - 1], dtype=torch.int32, device="cuda")
+    y_abs, _ = attn.mla_decode(p, x.to(dtype), cfg,
+                               {k: t.clone() for k, t in cache.items()},
+                               lengths)
+    y_naive, _ = attn.mla_decode_naive(p, x.to(dtype), cfg, cache, lengths)
+    a, n = y_abs.float(), y_naive.float()
+    err, scale = (a - n).abs().max().item(), n.abs().max().item()
+    say(f"  {cfg.name} absorbed MLA decode ({dtype}, layer 0) against "
+        f"mla_decode_naive: max_abs_err={err:.4g}, output scale "
+        f"{scale:.4g} (tol {tol} x scale)")
+    require(bool(torch.isfinite(a).all()) and err <= tol * scale,
+            f"{cfg.name}: absorbed MLA decode disagrees with the naive "
+            f"form ({err:.4g} against {tol * scale:.4g})")
+
+
 def lint_phase():
     """``repro_torch.analysis.lint``'s ``run_lint`` on the card, held to
     the committed baseline. Returns the run's launches and wall seconds."""
@@ -1109,6 +1330,14 @@ def main() -> int:
         lint_launches, lint_s = lint_phase()
         say(f"phase 8 lint: all kernels launched, baseline equal, "
             f"{lint_s:.1f}s wall")
+
+        say("phase 9 the moe family at full width (grok-1-314b, "
+            "deepseek-v3-671b):")
+        del m, ex                       # phase 4's served model
+        t9 = time.perf_counter()
+        moe_launches = moe_phase()
+        say(f"phase 9 moe: both archs served and checked, "
+            f"{time.perf_counter() - t9:.1f}s wall")
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -1127,7 +1356,9 @@ def main() -> int:
             "launches_by_path": {"serve": launches[name],
                                  "calibrate": calib_launches[name],
                                  "cluster": cluster_launches[name],
-                                 "lint": lint_launches[name]},
+                                 "lint": lint_launches[name],
+                                 **{f"serve {arch}": n[name] for arch, n
+                                    in moe_launches.items()}},
             "max_abs_err": main_case["max_abs_err"],
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],

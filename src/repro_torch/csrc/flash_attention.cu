@@ -1,5 +1,7 @@
-// flash_attention: prefill attention, softmax(Q K^T / sqrt(D), causal or not) V,
-// with GQA (query head h reads KV head h / G).
+// flash_attention: prefill attention, softmax(Q K^T / sqrt(DQK), causal or not) V,
+// with GQA (query head h reads KV head h / G). Q and K have head dim DQK, V and
+// the output DV: DQK = DV in {16, 32, 64, 128}, or MLA's DQK 192 (nope 128 +
+// rope 64) with DV 128.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::flash_attention
 // (body _fa_kernel). On the TPU the KV axis is a sequential grid axis that
@@ -22,15 +24,15 @@
 // - A warpgroup (128 threads) owns 64 query rows (BQ) and walks 64-key tiles
 //   (BK). Q, K and V stay bf16 in shared memory, in the
 //   no-swizzle "core matrix" order wgmma reads (8 rows x 16 bytes a core
-//   matrix, 128 contiguous bytes), so one layout serves every D in
-//   {16, 32, 64, 128}.
+//   matrix, 128 contiguous bytes), so one layout serves every head dim.
 // - K/V tiles come through a ring of STAGES stages with cp.async (16 bytes a
 //   thread, zero-filled past S): the copies of tiles j + 1 .. j + STAGES - 1
-//   overlap the products of tile j. Four stages at D <= 64 (72 KB a
-//   one-warpgroup block, three blocks an SM), three at D = 128 (112 KB, two
-//   blocks an SM; 128 KB with two warpgroups, one).
-// - S = Q K^T is D/16 wgmma m64n64k16 (A and B from shared memory, K-major);
-//   O += P V is 4 wgmma m64nDk16 with P as the A operand in registers
+//   overlap the products of tile j. Four stages at DQK <= 64 (72 KB a
+//   one-warpgroup block, three blocks an SM), three at DQK = 128 (112 KB, two
+//   blocks an SM; 128 KB with two warpgroups, one), two at MLA's DQK = 192
+//   (24 KB of Q and 2 x (24 KB of K + 16 KB of V): 104 KB, two blocks an SM).
+// - S = Q K^T is DQK/16 wgmma m64n64k16 (A and B from shared memory, K-major);
+//   O += P V is 4 wgmma m64nDVk16 with P as the A operand in registers
 //   (the S accumulator's layout is the A fragment's, converted to bf16 in
 //   place) and V read as a transposed (N-major) B operand, which 16-bit
 //   types allow. Both accumulate in fp32.
@@ -42,7 +44,8 @@
 // - Causal query tiles launch heaviest first (the tile index counts down
 //   along the slowest grid axis), so the last wave holds the short tiles.
 // - The output is staged in shared memory and written as 16-byte rows.
-// - A block has one warpgroup, or two when the GQA group is even: then the
+// - A block has one warpgroup, or two when the GQA group is even (at
+//   DQK <= 128; MLA's DQK 192 has G 1 and one warpgroup): then the
 //   two warpgroups are two query heads of one KV head, each with its own Q
 //   tile, and every K/V tile is copied once for both. At the GQA shape the
 //   K/V tiles, read again by each head of a group and each causal query
@@ -59,6 +62,12 @@
 // every other KV tile, were slower at both shapes. What is left: TMA with a
 // producer warp (warp specialisation), 128-byte swizzled tiles, and
 // persistent blocks that overlap one tile's end with the next one's start.
+//
+// MLA (DQK 192, DV 128, G 1, one head a block): the bytes of q, k, v and o
+// bound it too, 84 MB at B1 H128 S512 or 25 us, against 5.4 GFLOP causal (5.5
+// us on the tensor cores). A 192-wide row is 24 core matrices, which 128
+// threads do not divide into whole rows, so its tiles are copied chunk by chunk
+// (load_tile's general path). Simple and right first; its time is in PERF.md.
 //
 // fp32 keeps the first kernel's design: exact fp32 FMA on the CUDA cores
 // (the reference's 2e-5 tolerance rules out TF32), 32x32 tiles widened to
@@ -84,9 +93,9 @@ constexpr int WARPS = 4;
 constexpr int ROWS = BQ / WARPS;        // query rows per warp
 constexpr int THREADS = WARPS * 32;
 
-template <int D> struct Smem {
-  static constexpr int KS = D + 4;      // padded K row stride (floats)
-  static constexpr int FLOATS = BQ * D + BK * KS + BK * D + BQ * BK;
+template <int DQK, int DV> struct Smem {
+  static constexpr int KS = DQK + 4;    // padded K row stride (floats)
+  static constexpr int FLOATS = BQ * DQK + BK * KS + BK * DV + BQ * BK;
   static constexpr size_t BYTES = FLOATS * sizeof(float);
 };
 
@@ -116,7 +125,7 @@ __device__ __forceinline__ void load_tile(float* dst, int ds, const T* src,
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
@@ -126,13 +135,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        long long vb, long long vh, long long vs,
                        long long ob, long long oh, long long os,
                        float scale, int causal) {
-  constexpr int KS = Smem<D>::KS;
-  constexpr int DPL = (D + 31) / 32;    // output dims per lane
+  constexpr int KS = Smem<DQK, DV>::KS;
+  constexpr int DPL = (DV + 31) / 32;   // output dims per lane
   extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;                    // [BQ][D]
-  float* k_s = q_s + BQ * D;            // [BK][KS]
-  float* v_s = k_s + BK * KS;           // [BK][D]
-  float* p_s = v_s + BK * D;            // [WARPS][ROWS][BK]
+  float* q_s = smem;                    // [BQ][DQK]
+  float* k_s = q_s + BQ * DQK;          // [BK][KS]
+  float* v_s = k_s + BK * KS;           // [BK][DV]
+  float* p_s = v_s + BK * DV;           // [WARPS][ROWS][BK]
 
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -144,7 +153,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kp = k + b * kb + kvh * kh;
   const T* vp = v + b * vb + kvh * vh;
 
-  load_tile<T, D, BQ>(q_s, D, qp, qs, q0, S);
+  load_tile<T, DQK, BQ>(q_s, DQK, qp, qs, q0, S);
 
   float m[ROWS], l[ROWS], acc[ROWS][DPL];
 #pragma unroll
@@ -155,13 +164,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
   }
 
-  const float* q_w = q_s + warp * ROWS * D;   // this warp's query rows
+  const float* q_w = q_s + warp * ROWS * DQK;   // this warp's query rows
   float* p_w = p_s + warp * ROWS * BK;        // this warp's probabilities
   const int kv_end = causal ? min(S, q0 + BQ) : S;
   for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {
     __syncthreads();                  // previous tile consumed by every warp
-    load_tile<T, D, BK>(k_s, KS, kp, ks, kv0, S);
-    load_tile<T, D, BK>(v_s, D, vp, vs, kv0, S);
+    load_tile<T, DQK, BK>(k_s, KS, kp, ks, kv0, S);
+    load_tile<T, DV, BK>(v_s, DV, vp, vs, kv0, S);
     __syncthreads();
 
     // scores: lane owns key kv0 + lane, for each of the warp's rows
@@ -170,11 +179,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int r = 0; r < ROWS; ++r) s[r] = 0.f;
     const float* krow = k_s + lane * KS;
 #pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
+    for (int d = 0; d < DQK; d += 4) {
       const float4 k4 = *reinterpret_cast<const float4*>(krow + d);
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
-        const float4 q4 = *reinterpret_cast<const float4*>(q_w + r * D + d);
+        const float4 q4 = *reinterpret_cast<const float4*>(q_w + r * DQK + d);
         s[r] = fmaf(q4.x, k4.x, s[r]);
         s[r] = fmaf(q4.y, k4.y, s[r]);
         s[r] = fmaf(q4.z, k4.z, s[r]);
@@ -209,7 +218,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < DPL; ++c) {
           const int d = c * 32 + lane;
-          vj[jj][c] = d < D ? v_s[(j + jj) * D + d] : 0.f;
+          vj[jj][c] = d < DV ? v_s[(j + jj) * DV + d] : 0.f;
         }
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
@@ -234,18 +243,18 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DPL; ++c) {
       const int d = c * 32 + lane;
-      if (d < D) store(op + row * os + d, acc[r][c] / denom);
+      if (d < DV) store(op + row * os + d, acc[r][c] / denom);
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int KVH, int S, const long long* st,
                    int causal, cudaStream_t stream) {
-  constexpr size_t smem = Smem<D>::BYTES;
-  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(D)));
-  auto kernel = flash_attention_kernel<T, D>;
+  constexpr size_t smem = Smem<DQK, DV>::BYTES;
+  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(DQK)));
+  auto kernel = flash_attention_kernel<T, DQK, DV>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -272,13 +281,16 @@ constexpr int WG = 128;                 // threads of a warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
 
 // A block's ring: STAGES K/V tiles, STAGES - 1 of them in flight while one
-// is used. Bytes of one 64-row bf16 tile, and of a block's tiles for NW
-// warpgroups: NW Q tiles, then STAGES x (K, V).
-template <int D, int NW> struct Smem {
-  static constexpr int STAGES = D <= 64 ? 4 : 3;
-  static constexpr int TILE = 64 * D * 2;
-  static constexpr int BYTES = TILE * (NW + 2 * STAGES);
-  static_assert(NW * 64 * (D + 8) * 2 <= BYTES, "output stage too large");
+// is used. Bytes of one 64-row bf16 tile of Q or K (QK_TILE) and of V
+// (V_TILE), and of a block's tiles for NW warpgroups: NW Q tiles, then
+// STAGES x (K, V).
+template <int DQK, int DV, int NW> struct Smem {
+  static constexpr int STAGES = DQK <= 64 ? 4 : DQK <= 128 ? 3 : 2;
+  static constexpr int QK_TILE = 64 * DQK * 2;
+  static constexpr int V_TILE = 64 * DV * 2;
+  static constexpr int STAGE = QK_TILE + V_TILE;
+  static constexpr int BYTES = NW * QK_TILE + STAGES * STAGE;
+  static_assert(NW * 64 * (DV + 8) * 2 <= BYTES, "output stage too large");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -303,8 +315,10 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 // row (i / 8) / (D / 8) * 8 + i % 8, columns ((i / 8) % (D / 8)) * 8 + 0..7.
 // Eight consecutive threads fill one core matrix (128 contiguous bytes).
 // Thread t of the NT that copy takes chunks t, t + NT, ... (only the first
-// 64 * D / 8 threads when NT is more): one column block, rows NT / (D / 8)
-// apart, so its source pointer only steps.
+// 64 * D / 8 threads when NT is more). Where NT is a multiple of D (every
+// D but 192) that is one column block, rows NT / (D / 8) apart, so its
+// source pointer only steps; otherwise each chunk's row and column are
+// computed on their own.
 template <int D, int NT>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
                                           long long rs, int row0, int S, int t) {
@@ -312,14 +326,25 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
   constexpr int LT = 64 * CPR < NT ? 64 * CPR : NT;
   constexpr int RSTEP = LT / CPR;       // rows between a thread's chunks
   if (LT < NT && t >= LT) return;
-  const int row = row0 + (t / 8 / CPR) * 8 + t % 8;
-  const bf16* p = src + row * rs + (t / 8 % CPR) * 8;
-  dst += 16 * t;
+  if constexpr (LT % D != 0) {
+    static_assert(64 * CPR % LT == 0, "a tile's chunks split unevenly");
 #pragma unroll
-  for (int j = 0; j < 64 / RSTEP; ++j) {
-    const bool ok = row + j * RSTEP < S;
-    cp_async_16(dst + j * 16 * LT, ok ? p : src, ok);
-    p += RSTEP * rs;
+    for (int j = 0; j < 64 * CPR / LT; ++j) {
+      const int i = t + j * LT;
+      const int row = row0 + (i / 8 / CPR) * 8 + i % 8;
+      const bool ok = row < S;
+      cp_async_16(dst + 16 * i, ok ? src + row * rs + (i / 8 % CPR) * 8 : src, ok);
+    }
+  } else {
+    const int row = row0 + (t / 8 / CPR) * 8 + t % 8;
+    const bf16* p = src + row * rs + (t / 8 % CPR) * 8;
+    dst += 16 * t;
+#pragma unroll
+    for (int j = 0; j < 64 / RSTEP; ++j) {
+      const bool ok = row + j * RSTEP < S;
+      cp_async_16(dst + j * 16 * LT, ok ? p : src, ok);
+      p += RSTEP * rs;
+    }
   }
 }
 
@@ -425,7 +450,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // A block has NW warpgroups: warpgroup g owns the 64 query rows of head
 // blockIdx.x * NW + g, and the NW heads share one KV head (NW divides the
 // GQA group), so each K/V tile is copied once for all of them.
-template <int D, int NW>
+template <int DQK, int DV, int NW>
 __global__ void __launch_bounds__(NW * WG)
 flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -436,12 +461,12 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                           long long ob, long long oh, long long os,
                           float scale_log2, int causal) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int TILE = Smem<D, NW>::TILE;
-  constexpr int STAGES = Smem<D, NW>::STAGES;
+  using SM = Smem<DQK, DV, NW>;
+  constexpr int STAGES = SM::STAGES;
   constexpr int NT = NW * WG;
   const int wg = threadIdx.x / WG, tid = threadIdx.x % WG;
-  const uint32_t q_s = smem_addr(smem) + wg * TILE;   // this warpgroup's Q
-  const uint32_t kv_s = smem_addr(smem) + NW * TILE;  // stage st: K at + 2 st TILE, V after
+  const uint32_t q_s = smem_addr(smem) + wg * SM::QK_TILE;   // this warpgroup's Q
+  const uint32_t kv_s = smem_addr(smem) + NW * SM::QK_TILE;  // stage st: K at + st STAGE, V after
 
   const int h = blockIdx.x * NW + wg, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;   // heaviest tiles first
@@ -454,20 +479,21 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const int n_kv = (kv_end + BK - 1) / BK;
 
   // cp.async group p holds tile p (group 0 also Q); STAGES - 1 in flight
-  load_tile<D, WG>(q_s, q + b * qb + h * qh, qs, q0, S, tid);
+  load_tile<DQK, WG>(q_s, q + b * qb + h * qh, qs, q0, S, tid);
 #pragma unroll
   for (int p = 0; p < STAGES - 1; ++p) {
     if (p < n_kv) {
-      load_tile<D, NT>(kv_s + p * 2 * TILE, kp, ks, p * BK, S, threadIdx.x);
-      load_tile<D, NT>(kv_s + p * 2 * TILE + TILE, vp, vs, p * BK, S, threadIdx.x);
+      load_tile<DQK, NT>(kv_s + p * SM::STAGE, kp, ks, p * BK, S, threadIdx.x);
+      load_tile<DV, NT>(kv_s + p * SM::STAGE + SM::QK_TILE, vp, vs, p * BK, S,
+                        threadIdx.x);
     }
     cp_async_commit();
   }
 
   const int row_a = q0 + warp * 16 + lane / 4;  // this thread's rows: row_a, row_a + 8
-  float o_acc[D / 2];
+  float o_acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o_acc[i] = 0.f;
   float s[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) s[i] = 0.f;
@@ -476,23 +502,23 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   for (int t = 0; t < n_kv; ++t) {
     const int ahead = t + STAGES - 1;   // into the stage tile t - 1 used
     if (ahead < n_kv) {
-      const uint32_t nxt = kv_s + (ahead % STAGES) * 2 * TILE;
-      load_tile<D, NT>(nxt, kp, ks, ahead * BK, S, threadIdx.x);
-      load_tile<D, NT>(nxt + TILE, vp, vs, ahead * BK, S, threadIdx.x);
+      const uint32_t nxt = kv_s + (ahead % STAGES) * SM::STAGE;
+      load_tile<DQK, NT>(nxt, kp, ks, ahead * BK, S, threadIdx.x);
+      load_tile<DV, NT>(nxt + SM::QK_TILE, vp, vs, ahead * BK, S, threadIdx.x);
     }
     cp_async_commit();
     cp_async_wait<STAGES - 1>();        // tile t (and Q) has landed
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
-    const uint32_t k_s = kv_s + (t % STAGES) * 2 * TILE, v_s = k_s + TILE;
+    const uint32_t k_s = kv_s + (t % STAGES) * SM::STAGE, v_s = k_s + SM::QK_TILE;
 
-    // S = Q K^T: D / 16 steps of 16 along D (two core matrices, 256 bytes)
+    // S = Q K^T: DQK / 16 steps of 16 along DQK (two core matrices, 256 bytes)
     fence_regs(s);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(s, desc(q_s + kk * 256, 128, 16 * D),
-                   desc(k_s + kk * 256, 128, 16 * D), kk > 0);
+    for (int kk = 0; kk < DQK / 16; ++kk)
+      wgmma_ss_n64(s, desc(q_s + kk * 256, 128, 16 * DQK),
+                   desc(k_s + kk * 256, 128, 16 * DQK), kk > 0);
     wgmma_commit();
     wgmma_wait();
     fence_regs(s);
@@ -528,7 +554,7 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       l[r] += s[i];
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o_acc[i] *= corr[(i / 2) % 2];
+    for (int i = 0; i < DV / 2; ++i) o_acc[i] *= corr[(i / 2) % 2];
 
     // P as bf16 A fragments, 16 keys a step: values 8 kk .. 8 kk + 7
     uint32_t a[4][4];
@@ -538,13 +564,13 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       for (int j = 0; j < 4; ++j)
         a[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
 
-    // O += P V: V [BK x D] as the N-major B operand; a step of 16 keys is two
-    // core matrices along K (16 D bytes apart), core matrices along N 128
+    // O += P V: V [BK x DV] as the N-major B operand; a step of 16 keys is two
+    // core matrices along K (16 DV bytes apart), core matrices along N 128
     fence_regs(o_acc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_pv<D>(o_acc, a[kk], desc(v_s + kk * 32 * D, 16 * D, 128));
+      wgmma_pv<DV>(o_acc, a[kk], desc(v_s + kk * 32 * DV, 16 * DV, 128));
     wgmma_commit();
     wgmma_wait();
     fence_regs(o_acc);
@@ -552,7 +578,7 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
 
   // finish the row sums over the quad, normalise, stage the tile in shared
-  // memory (row stride D + 8 elements: conflict-free 4-byte writes) and
+  // memory (row stride DV + 8 elements: conflict-free 4-byte writes) and
   // write it as 16-byte rows
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -560,10 +586,10 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     l[r] += __shfl_xor_sync(FULL_MASK, l[r], 2);
     l[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
-  constexpr int OS = D + 8;
+  constexpr int OS = DV + 8;
   bf16* o_s = reinterpret_cast<bf16*>(smem) + wg * 64 * OS;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = warp * 16 + lane / 4 + 8 * r;
@@ -574,23 +600,23 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   __syncthreads();
   bf16* op = o + b * ob + h * oh;
 #pragma unroll
-  for (int j = 0; j < 64 * (D / 8) / WG; ++j) {
+  for (int j = 0; j < 64 * (DV / 8) / WG; ++j) {
     const int i = j * WG + tid;
-    const int row = i / (D / 8), c = (i % (D / 8)) * 8;
+    const int row = i / (DV / 8), c = (i % (DV / 8)) * 8;
     if (q0 + row < S)
       *reinterpret_cast<uint4*>(op + (q0 + row) * os + c) =
           *reinterpret_cast<const uint4*>(o_s + row * OS + c);
   }
 }
 
-template <int D, int NW>
+template <int DQK, int DV, int NW>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int KVH, int S, const long long* st,
                    int causal, cudaStream_t stream) {
-  constexpr int smem = Smem<D, NW>::BYTES;
+  constexpr int smem = Smem<DQK, DV, NW>::BYTES;
   const float scale_log2 =
-      static_cast<float>(LOG2E / std::sqrt(static_cast<double>(D)));
-  auto kernel = flash_attention_tc_kernel<D, NW>;
+      static_cast<float>(LOG2E / std::sqrt(static_cast<double>(DQK)));
+  auto kernel = flash_attention_tc_kernel<DQK, DV, NW>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -606,72 +632,87 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }
 
 // Two warpgroups (two heads) a block where the GQA group is even, else one.
-template <int D>
+// MLA (DQK 192) has G 1 and always takes one.
+template <int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int KVH, int S, const long long* st,
                    int causal, cudaStream_t stream) {
-  return (H / KVH) % 2 == 0
-             ? launch<D, 2>(q, k, v, o, B, H, KVH, S, st, causal, stream)
-             : launch<D, 1>(q, k, v, o, B, H, KVH, S, st, causal, stream);
+  if constexpr (DQK == 192)
+    return launch<DQK, DV, 1>(q, k, v, o, B, H, KVH, S, st, causal, stream);
+  else
+    return (H / KVH) % 2 == 0
+               ? launch<DQK, DV, 2>(q, k, v, o, B, H, KVH, S, st, causal, stream)
+               : launch<DQK, DV, 1>(q, k, v, o, B, H, KVH, S, st, causal, stream);
 }
 
 }  // namespace tc
 
+// The kernel for one (dtype, DQK, DV): wgmma for bf16, CUDA cores for fp32.
+template <typename T, int DQK, int DV>
+cudaError_t launch_dims(const void* q, const void* k, const void* v, void* o,
+                        int B, int H, int KVH, int S, const long long* st,
+                        int causal, cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return tc::launch<DQK, DV>(q, k, v, o, B, H, KVH, S, st, causal, stream);
+  else
+    return launch<float, DQK, DV>(q, k, v, o, B, H, KVH, S, st, causal, stream);
+}
+
 template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       void* o, int B, int H, int KVH, int S,
+cudaError_t dispatch_d(int DQK, int DV, const void* q, const void* k,
+                       const void* v, void* o, int B, int H, int KVH, int S,
                        const long long* st, int causal, cudaStream_t stream) {
-  constexpr bool TC = std::is_same<T, __nv_bfloat16>::value;
-  switch (D) {
-    case 16: return TC ? tc::launch<16>(q, k, v, o, B, H, KVH, S, st, causal, stream)
-                       : launch<float, 16>(q, k, v, o, B, H, KVH, S, st, causal, stream);
-    case 32: return TC ? tc::launch<32>(q, k, v, o, B, H, KVH, S, st, causal, stream)
-                       : launch<float, 32>(q, k, v, o, B, H, KVH, S, st, causal, stream);
-    case 64: return TC ? tc::launch<64>(q, k, v, o, B, H, KVH, S, st, causal, stream)
-                       : launch<float, 64>(q, k, v, o, B, H, KVH, S, st, causal, stream);
-    case 128: return TC ? tc::launch<128>(q, k, v, o, B, H, KVH, S, st, causal, stream)
-                        : launch<float, 128>(q, k, v, o, B, H, KVH, S, st, causal, stream);
+  if (DQK == 192 && DV == 128)
+    return launch_dims<T, 192, 128>(q, k, v, o, B, H, KVH, S, st, causal, stream);
+  if (DQK != DV) return cudaErrorInvalidValue;
+  switch (DQK) {
+    case 16: return launch_dims<T, 16, 16>(q, k, v, o, B, H, KVH, S, st, causal, stream);
+    case 32: return launch_dims<T, 32, 32>(q, k, v, o, B, H, KVH, S, st, causal, stream);
+    case 64: return launch_dims<T, 64, 64>(q, k, v, o, B, H, KVH, S, st, causal, stream);
+    case 128: return launch_dims<T, 128, 128>(q, k, v, o, B, H, KVH, S, st, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// Dynamic shared memory of the kernel for (dtype, DQK, DV, NW warpgroups).
+template <int DQK, int DV>
+int smem_dims(int dtype, bool two) {
+  if (dtype != DTYPE_BF16) return (int)Smem<DQK, DV>::BYTES;
+  return two ? tc::Smem<DQK, DV, 2>::BYTES : tc::Smem<DQK, DV, 1>::BYTES;
+}
+
 }  // namespace
 
-// q [B,H,S,D], k/v [B,KVH,S,D], o [B,H,S,D]; scores are scaled by 1/sqrt(D).
-// Strides (in elements) are (batch, head, sequence) for q, k, v, o in that
-// order: 12 values.
+// q [B,H,S,DQK], k [B,KVH,S,DQK], v [B,KVH,S,DV], o [B,H,S,DV]; scores are
+// scaled by 1/sqrt(DQK). (DQK, DV) is (D, D) for D in {16, 32, 64, 128} or
+// (192, 128). Strides (in elements) are (batch, head, sequence) for q, k, v,
+// o in that order: 12 values.
 // Returns the launch's cudaGetLastError().
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int dtype, int B, int H, int KVH,
-                                   int S, int D, const long long* strides,
+                                   int S, int DQK, int DV, const long long* strides,
                                    int causal, void* stream) {
   if (B <= 0 || S <= 0 || KVH <= 0 || H % KVH != 0) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_F32)
-    return dispatch_d<float>(D, q, k, v, o, B, H, KVH, S, strides, causal, st);
+    return dispatch_d<float>(DQK, DV, q, k, v, o, B, H, KVH, S, strides, causal, st);
   if (dtype == DTYPE_BF16)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, o, B, H, KVH, S, strides, causal, st);
+    return dispatch_d<__nv_bfloat16>(DQK, DV, q, k, v, o, B, H, KVH, S, strides,
+                                     causal, st);
   return cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory a block of the kernel for (dtype, D, GQA group G)
-// asks for, in bytes; -1 for an unsupported D.
-extern "C" int flash_attention_smem_bytes(int dtype, int D, int G) {
+// Dynamic shared memory a block of the kernel for (dtype, DQK, DV, GQA group
+// G) asks for, in bytes; -1 for an unsupported pair of head dims.
+extern "C" int flash_attention_smem_bytes(int dtype, int DQK, int DV, int G) {
   const bool two = G % 2 == 0;
-  if (dtype != DTYPE_BF16) {
-    switch (D) {
-      case 16: return (int)Smem<16>::BYTES;
-      case 32: return (int)Smem<32>::BYTES;
-      case 64: return (int)Smem<64>::BYTES;
-      case 128: return (int)Smem<128>::BYTES;
-      default: return -1;
-    }
-  }
-  switch (D) {
-    case 16: return two ? tc::Smem<16, 2>::BYTES : tc::Smem<16, 1>::BYTES;
-    case 32: return two ? tc::Smem<32, 2>::BYTES : tc::Smem<32, 1>::BYTES;
-    case 64: return two ? tc::Smem<64, 2>::BYTES : tc::Smem<64, 1>::BYTES;
-    case 128: return two ? tc::Smem<128, 2>::BYTES : tc::Smem<128, 1>::BYTES;
+  if (DQK == 192 && DV == 128) return smem_dims<192, 128>(dtype, false);
+  if (DQK != DV) return -1;
+  switch (DQK) {
+    case 16: return smem_dims<16, 16>(dtype, two);
+    case 32: return smem_dims<32, 32>(dtype, two);
+    case 64: return smem_dims<64, 64>(dtype, two);
+    case 128: return smem_dims<128, 128>(dtype, two);
     default: return -1;
   }
 }

@@ -23,15 +23,16 @@ import time
 
 from repro_torch.kernels import build
 
-S_PRODUCT = """      wgmma_ss_n64(s, desc(q_s + kk * 256, 128, 16 * D),
-                   desc(k_s + kk * 256, 128, 16 * D), kk > 0);"""
-PV_PRODUCT = ("      wgmma_pv<D>(o_acc, a[kk], "
-              "desc(v_s + kk * 32 * D, 16 * D, 128));")
+S_PRODUCT = """      wgmma_ss_n64(s, desc(q_s + kk * 256, 128, 16 * DQK),
+                   desc(k_s + kk * 256, 128, 16 * DQK), kk > 0);"""
+PV_PRODUCT = ("      wgmma_pv<DV>(o_acc, a[kk], "
+              "desc(v_s + kk * 32 * DV, 16 * DV, 128));")
 EXP = "      s[i] = exp2f(s[i] - m[r]);"
 LOOP_COPIES = "    if (ahead < n_kv) {"
 N_KV = "  const int n_kv = (kv_end + BK - 1) / BK;"
-PAIR = "  return (H / KVH) % 2 == 0"
-STAGES = "  static constexpr int STAGES = D <= 64 ? 4 : 3;"
+PAIR = "    return (H / KVH) % 2 == 0"
+STAGES = ("  static constexpr int STAGES = DQK <= 64 ? 4 : DQK <= 128 ? 3 "
+          ": 2;")
 
 NO_PRODUCTS = [(S_PRODUCT, "      {}"), (PV_PRODUCT, "      {}")]
 NO_EXP = [(EXP, "      s[i] = s[i] - m[r];")]
@@ -43,14 +44,14 @@ VARIANTS = {
     "no copies in the loop": NO_LOOP_COPIES,
     "none of the three": NO_PRODUCTS + NO_EXP + NO_LOOP_COPIES,
     "first KV tile only": [(N_KV, "  const int n_kv = 1;")],
-    "one head a block": [(PAIR, "  return false")],
+    "one head a block": [(PAIR, "    return false")],
     "2 stages": [(STAGES, "  static constexpr int STAGES = 2;")],
     "8 stages at D <= 64": [(STAGES, "  static constexpr int STAGES = "
-                                     "D <= 64 ? 8 : 3;")],
+                                     "DQK <= 64 ? 8 : DQK <= 128 ? 3 : 2;")],
 }
 # (B, H, KVH, S, D), causal, q/k/v as transpose views of [B, S, heads, D]
 SHAPES = [(1, 16, 16, 512, 64), (4, 48, 4, 500, 128)]
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
 
 
@@ -139,7 +140,7 @@ def main() -> int:
             fn.argtypes = _ARGTYPES
             ms = device_ms(lambda fn=fn: fn(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                build.DTYPE_CODES["bfloat16"], B, H, KVH, S, D, st, 1,
+                build.DTYPE_CODES["bfloat16"], B, H, KVH, S, D, D, st, 1,
                 stream))
             row.append(f"{name} {ms * 1e3:.1f} us")
         print(f"B{B} H{H} KVH{KVH} S{S} D{D} causal bf16: " + "; ".join(row),

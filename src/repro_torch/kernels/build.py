@@ -121,22 +121,22 @@ def check(name: str, err: int, what: str) -> None:
 # dtype codes of the C entry points (csrc/common.cuh)
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 HEAD_DIMS = (16, 32, 64, 128)
+# flash_attention's (q/k head dim, v head dim) pairs: one head dim for all
+# three, or MLA's 192 (nope 128 + rope 64) for q/k with 128 for v
+ATTENTION_DIMS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 
 
 def check_operands(what: str, **tensors) -> int:
     """Validate a kernel's tensor operands: CUDA tensors on one device, of
-    one dtype the kernel takes, with a contiguous last dimension of a
-    supported head size and 16-byte aligned rows (the kernels load 16
-    bytes at a time). Shapes are the caller's to check. Returns the dtype
+    one dtype the kernel takes, with a contiguous last dimension and
+    16-byte aligned rows (the kernels load 16 bytes at a time). Shapes,
+    head dims among them, are the caller's to check. Returns the dtype
     code."""
     first = next(iter(tensors.values()))
     dtype = str(first.dtype).removeprefix("torch.")
     if dtype not in DTYPE_CODES:
         raise TypeError(f"{what}: dtype {first.dtype} not supported "
                         f"(float32 or bfloat16)")
-    if first.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"{what}: head dim {first.shape[-1]} not in "
-                         f"{HEAD_DIMS}")
     for nm, t in tensors.items():
         if t.device.type != "cuda":
             raise ValueError(f"{what}: {nm} is on {t.device}; the kernel "

@@ -90,6 +90,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape[0] != B or k.shape[3] != D or H % KVH:
         raise ValueError(f"flash_decode: k/v {tuple(k.shape)} do not match "
                          f"q {tuple(q.shape)}")
+    if D not in build.HEAD_DIMS:
+        raise ValueError(f"flash_decode: head dim {D} not in "
+                         f"{build.HEAD_DIMS}")
     if H // KVH > MAX_GROUP:
         raise ValueError(f"flash_decode: group size {H // KVH} above "
                          f"{MAX_GROUP}")

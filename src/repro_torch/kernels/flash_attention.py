@@ -20,47 +20,59 @@ from repro_torch.kernels import build
 # kernel launches since the last reset (see kernels.ops.reset_launch_counts)
 launches = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
 
 
-def smem_bytes(dtype: str, D: int, G: int = 1) -> int:
+def smem_bytes(dtype: str, D: int, Dv: int, G: int) -> int:
     """Dynamic shared memory a block asks for, for ``dtype`` ("float32" or
-    "bfloat16"), head dim D and GQA group G (builds the library if
-    needed)."""
+    "bfloat16"), q/k head dim D, v head dim Dv and GQA group G (builds
+    the library if needed)."""
     fn = build.bind("flash_attention", "flash_attention_smem_bytes",
-                    [ctypes.c_int] * 3)
-    return fn(build.DTYPE_CODES[dtype], D, G)
+                    [ctypes.c_int] * 4)
+    return fn(build.DTYPE_CODES[dtype], D, Dv, G)
+
+
+def out_like(q: torch.Tensor, dv: int) -> torch.Tensor:
+    """An uninitialised [B,H,S,dv] laid out in q's order of dims: a
+    ``transpose(1, 2)`` view of a ``[B,S,H,D]`` q gives an output whose
+    ``transpose(1, 2)`` is a contiguous ``[B,S,H,dv]``."""
+    order = sorted(range(3), key=lambda i: q.stride(i), reverse=True)
+    o = q.new_empty([q.shape[i] for i in order] + [dv])
+    return o.permute(*[order.index(i) for i in range(3)], 3)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q [B,H,S,D], k/v [B,KVH,S,D] -> [B,H,S,D] in ``q.dtype``, with the
-    scores scaled by 1/sqrt(D) as in the TPU kernel.
+    """q [B,H,S,D], k [B,KVH,S,D], v [B,KVH,S,Dv] -> [B,H,S,Dv] in
+    ``q.dtype``, with the scores scaled by 1/sqrt(D) as in the TPU kernel;
+    (D, Dv) one of ``build.ATTENTION_DIMS``.
 
     Any strides with a contiguous last dimension; the output takes q's
-    memory layout (``empty_like``), so a ``transpose(1, 2)`` view of a
-    ``[B,S,H,D]`` tensor gives an output whose ``transpose(1, 2)`` is a
-    contiguous ``[B,S,H,D]``."""
+    order of dims (``out_like``)."""
     global launches
-    code = build.check_operands("flash_attention", q=q, k=k, v=v)
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     B, H, S, D = q.shape
-    KVH = k.shape[1]
-    if k.shape != (B, KVH, S, D) or H % KVH:
-        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
-                         f"match q {tuple(q.shape)} (Sq must equal Skv, "
-                         "H a multiple of KVH)")
-    o = torch.empty_like(q)
-    if q.numel() == 0:
+    KVH, Dv = k.shape[1], v.shape[-1]
+    if (k.shape != (B, KVH, S, D) or v.shape != (B, KVH, S, Dv)
+            or H % KVH):
+        raise ValueError(f"flash_attention: k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)} do not match q {tuple(q.shape)} "
+                         "(Sq must equal Skv, H a multiple of KVH)")
+    if (D, Dv) not in build.ATTENTION_DIMS:
+        raise ValueError(f"flash_attention: head dims (q/k {D}, v {Dv}) not "
+                         f"in {build.ATTENTION_DIMS}")
+    code = build.check_operands("flash_attention", q=q, k=k, v=v)
+    o = out_like(q, Dv)
+    if o.numel() == 0:
         return o
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
     fn = build.bind("flash_attention", "flash_attention_fwd", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), code,
-             B, H, KVH, S, D, strides, int(causal),
+             B, H, KVH, S, D, Dv, strides, int(causal),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check("flash_attention", err, "flash_attention")
     launches += 1

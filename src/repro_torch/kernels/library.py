@@ -33,7 +33,8 @@ from repro_torch.kernels import ref
                          device_types="cuda")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool) -> torch.Tensor:
-    """q [B,H,S,D], k/v [B,KVH,S,D] -> [B,H,S,D]: the CUDA kernel."""
+    """q [B,H,S,D], k [B,KVH,S,D], v [B,KVH,S,Dv] -> [B,H,S,Dv]: the CUDA
+    kernel."""
     return _fa.flash_attention(q, k, v, causal=causal)
 
 
@@ -44,7 +45,7 @@ def _(q, k, v, causal):
 
 @flash_attention.register_fake
 def _(q, k, v, causal):
-    return torch.empty_like(q)
+    return _fa.out_like(q, v.shape[-1])       # the kernel's output layout
 
 
 # ---------------------------------------------------------- flash decode
@@ -100,12 +101,12 @@ CHACHA20_OPS_PER_BLOCK = 10 * 8 * (4 + 4 + 4 * 3) + 16
 
 
 def _attention_flops(q, k, v, causal):
-    """The full QK^T and PV products, 4 B H Sq Skv D, causal or not: an
-    upper bound, since the kernel skips the tiles above the causal
+    """The full QK^T and PV products, 2 B H Sq Skv (D + Dv), causal or
+    not: an upper bound, since the kernel skips the tiles above the causal
     diagonal. The reference's static count charges the same (its ``cond``
     over the skipped blocks is costed as the max of its branches)."""
     B, H, Sq, D = q.shape
-    f = 4.0 * B * H * Sq * k.shape[2] * D
+    f = 2.0 * B * H * Sq * k.shape[2] * (D + v.shape[-1])
     return f, f
 
 

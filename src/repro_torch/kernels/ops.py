@@ -22,7 +22,7 @@ KERNEL_MODULES = {"flash_attention": _fa, "flash_decode": _fd,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q [B,H,S,D], k/v [B,KVH,S,D] -> [B,H,S,D]."""
+    """q [B,H,S,D], k [B,KVH,S,D], v [B,KVH,S,Dv] -> [B,H,S,Dv]."""
     return library.flash_attention(q, k, v, causal)
 
 

@@ -74,12 +74,13 @@ def chacha20_keystream_ref(key: torch.Tensor, nonce: torch.Tensor,
 
 
 def attention_ref(q, k, v, *, causal: bool, scale=None) -> torch.Tensor:
-    """q [B,H,Sq,D], k/v [B,KVH,Skv,D] -> [B,H,Sq,D] (fp32 math).
+    """q [B,H,Sq,D], k [B,KVH,Skv,D], v [B,KVH,Skv,Dv] -> [B,H,Sq,Dv]
+    (fp32 math), scores scaled by 1/sqrt(D) unless ``scale`` is given.
 
     The causal mask is aligned to the bottom right (query i sees keys
     ``<= i + Skv - Sq``), as in the reference."""
     B, H, Sq, D = q.shape
-    KVH, Skv = k.shape[1], k.shape[2]
+    KVH, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // KVH
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     qf = q.float().reshape(B, KVH, G, Sq, D)
@@ -90,7 +91,7 @@ def attention_ref(q, k, v, *, causal: bool, scale=None) -> torch.Tensor:
         s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
-    return o.reshape(B, H, Sq, D).to(q.dtype)
+    return o.reshape(B, H, Sq, Dv).to(q.dtype)
 
 
 def decode_attention_ref(q, k, v, lengths, *, scale=None) -> torch.Tensor:

@@ -8,8 +8,8 @@ tensors in place of arrays. ``abstract_params()`` and ``input_specs(shape)``
 give parameters and inputs on the ``meta`` device, where nothing is
 allocated: the counterpart of the reference's ``jax.eval_shape`` and
 ``ShapeDtypeStruct``s, which the static analysis traces at full width.
-This port builds the ``dense`` and ``vlm`` (early-fusion, token-stream)
-families; the others raise.
+This port builds the ``dense``, ``vlm`` (early-fusion, token-stream) and
+``moe`` (MoE FFN, GQA or MLA attention) families; the others raise.
 """
 from __future__ import annotations
 
@@ -72,13 +72,12 @@ def _build_lm(cfg: ArchConfig, device: torch.device) -> Model:
 
 # families of later slices, and the ROADMAP item that ports each
 LATER_SLICES = {
-    "moe": "MLA and MoE (ROADMAP queue 1, item 5)",
     "hybrid": "Mamba2 and hybrid (ROADMAP queue 1, item 6)",
     "ssm": "RWKV6 (ROADMAP queue 1, item 7)",
     "audio": "the encoder-decoder (ROADMAP queue 1, item 8)",
 }
 
-FAMILIES = {"dense": _build_lm, "vlm": _build_lm}
+FAMILIES = {"dense": _build_lm, "vlm": _build_lm, "moe": _build_lm}
 
 
 def build_model(cfg: ArchConfig, device="cuda") -> Model:

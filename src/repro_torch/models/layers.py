@@ -2,7 +2,8 @@
 
 Port of ``repro.models.layers``. Everything is a plain function over dict
 params (dense weights ``[d_in, d_out]``); stacked layer params carry a
-leading layer axis. ``compute_dtype`` casting happens at matmul inputs;
+leading layer axis. The ``init_*`` functions give parameter specs
+(``Draw``s), which ``materialize`` allocates and fills. ``compute_dtype`` casting happens at matmul inputs;
 norms, softmax and logits run in fp32.
 
 ``chunked_attention`` has no counterpart here: on the port's path the
@@ -12,8 +13,10 @@ plain forms of attention in the model's ``[B, S, H, D]`` layout.
 """
 from __future__ import annotations
 
+import itertools
 import math
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,12 +31,73 @@ def dt(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
+# ---------------------------------------------------------------- init
+#
+# The init functions below return trees of ``Draw``s: what each parameter
+# is, not its values. ``materialize`` then allocates every tensor once, in
+# its final dtype, and fills it in place from the generator. At full width
+# this keeps the peak at the parameters' own size: no stack of per-layer
+# copies and no second fp32 copy of a weight (one deepseek-v3 expert
+# tensor is 15 GB in fp32).
+
+@dataclass(frozen=True)
+class Draw:
+    """One parameter: ``shape``, and N(0, std^2) drawn in fp32 and rounded
+    to the parameter's dtype, or the constant ``value`` where ``std`` is
+    None. A draw of more than two dims is made one trailing matrix at a
+    time (an expert's at a time), so the fp32 draw holds one matrix."""
+    shape: Tuple[int, ...]
+    std: Optional[float] = None
+    value: float = 0.0
+
+
+def _draws(tree, path=()):
+    """(path, Draw) of every leaf, in the tree's insertion order."""
+    if isinstance(tree, Draw):
+        yield path, tree
+        return
+    for k, v in tree.items():
+        yield from _draws(v, path + (k,))
+
+
+def _fill(t: torch.Tensor, d: Draw, gen) -> None:
+    if t.device.type == "meta":
+        return
+    if d.std is None:
+        t.fill_(d.value)
+        return
+    for idx in itertools.product(*map(range, d.shape[:-2])):
+        dst = t[idx]
+        dst.copy_(torch.randn(dst.shape, generator=gen, dtype=torch.float32,
+                              device=t.device).mul_(d.std))
+
+
+def materialize(spec, gen, dtype, device, layers: int = 0):
+    """Tensors for a tree of ``Draw``s, in ``dtype`` on ``device``, filled in tree order from ``gen`` (on ``device``; None on
+    the meta device, where nothing is allocated or drawn). With
+    ``layers`` = L every leaf is ``[L, *shape]``, filled a layer at a
+    time: all of layer 0, then layer 1, ..."""
+    leaves = list(_draws(spec))
+    out = [torch.empty(((layers,) if layers else ()) + tuple(d.shape),
+                       dtype=dtype, device=device) for _, d in leaves]
+    for i in range(max(layers, 1)):
+        for t, (_, d) in zip(out, leaves):
+            _fill(t[i] if layers else t, d, gen)
+    tree: dict = {}
+    for t, (path, _) in zip(out, leaves):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = t
+    return tree
+
+
 # ----------------------------------------------------------------- norms
 
-def init_norm(d: int, norm: str, dtype, device) -> dict:
-    p = {"scale": torch.ones((d,), dtype=dtype, device=device)}
+def init_norm(d: int, norm: str) -> dict:
+    p = {"scale": Draw((d,), value=1.0)}
     if norm == "layernorm":
-        p["bias"] = torch.zeros((d,), dtype=dtype, device=device)
+        p["bias"] = Draw((d,))
     return p
 
 
@@ -84,14 +148,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 # ------------------------------------------------------------- MLP / GLU
 
-def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
-               bias: bool = False) -> dict:
-    std = 1.0 / math.sqrt(d_in)
-    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
-                    device=device)
-    p = {"w": (w * std).to(dtype)}
+def init_dense(d_in: int, d_out: int, bias: bool = False) -> dict:
+    p = {"w": Draw((d_in, d_out), std=1.0 / math.sqrt(d_in))}
     if bias:
-        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+        p["b"] = Draw((d_out,))
     return p
 
 
@@ -106,12 +166,10 @@ ACTS = {"silu": F.silu,
         "gelu": lambda x: F.gelu(x, approximate="tanh")}
 
 
-def init_mlp(gen: torch.Generator, d: int, d_ff: int, glu: bool, dtype,
-             device) -> dict:
-    p = {"up": init_dense(gen, d, d_ff, dtype, device),
-         "down": init_dense(gen, d_ff, d, dtype, device)}
+def init_mlp(d: int, d_ff: int, glu: bool) -> dict:
+    p = {"up": init_dense(d, d_ff), "down": init_dense(d_ff, d)}
     if glu:
-        p["gate"] = init_dense(gen, d, d_ff, dtype, device)
+        p["gate"] = init_dense(d, d_ff)
     return p
 
 
@@ -191,11 +249,8 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
 
 # ------------------------------------------------------------- embeddings
 
-def init_embedding(gen: torch.Generator, vocab: int, d: int, dtype,
-                   device) -> torch.Tensor:
-    e = torch.randn((vocab, d), generator=gen, dtype=torch.float32,
-                    device=device)
-    return (e * 0.02).to(dtype)
+def init_embedding(vocab: int, d: int) -> Draw:
+    return Draw((vocab, d), std=0.02)
 
 
 def unembed(x: torch.Tensor, emb_or_w: torch.Tensor,

@@ -1,13 +1,20 @@
-"""Decoder-only LM with dense FFN and GQA attention: the dense part of
-``repro.models.transformer``.
+"""Decoder-only LM: dense / MoE FFN x GQA / MLA attention, the port of
+``repro.models.transformer`` (serving half).
 
 Parameters keep the reference's layout: per-layer params stacked along a
 leading layer axis under ``params["layers"]`` (``attn/wq/w``, ``norm1/scale``,
-``mlp/gate/w``, ...), dense weights ``[d_in, d_out]``. A Python loop over
-the layers replaces ``jax.lax.scan``. The KV cache is stacked the same way:
-``{"k", "v"}`` of shape ``[L, B, Smax, KVH, hd]``.
+``mlp/gate/w``, ``moe/up``, ...), dense weights ``[d_in, d_out]``. A Python
+loop over the layers replaces ``jax.lax.scan``. The cache is stacked the
+same way: ``{"k", "v"}`` of shape ``[L, B, Smax, KVH, hd]`` for GQA,
+``{"c_kv", "k_rope"}`` of shape ``[L, B, Smax, kv_lora]`` and ``[L, B, Smax,
+rope]`` for MLA.
 
-MoE, MLA, MTP and ``lm_loss`` wait for later slices of the port.
+``lm_init`` allocates each stacked tensor once, in the parameter dtype,
+and fills it layer by layer (and expert by expert) from the generator, so
+a full-width init needs no more memory than the parameters themselves.
+
+``lm_backbone``, ``lm_loss`` and the MTP head (``mtp_init`` /
+``mtp_loss``) come with the training slice of the port (ROADMAP).
 """
 from __future__ import annotations
 
@@ -16,26 +23,26 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
-    apply_norm, dt, init_embedding, init_mlp, init_norm, mlp, unembed,
+    apply_norm, dt, init_embedding, init_mlp, init_norm, materialize, mlp,
+    unembed,
 )
+from repro_torch.models.moe import moe_block, moe_init
 
 
 # ------------------------------------------------------------------ init
 
 
-def _layer_init(gen, cfg: ArchConfig, dtype, device) -> dict:
-    return {"attn": attn.gqa_init(gen, cfg, dtype, device),
-            "norm1": init_norm(cfg.d_model, cfg.norm, dtype, device),
-            "norm2": init_norm(cfg.d_model, cfg.norm, dtype, device),
-            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.glu, dtype,
-                            device)}
-
-
-def _stack(trees: list) -> dict:
-    """List of same-structure dicts of tensors -> dict of stacked tensors."""
-    return {k: (_stack([t[k] for t in trees]) if isinstance(v, dict)
-                else torch.stack([t[k] for t in trees]))
-            for k, v in trees[0].items()}
+def _layer_init(cfg: ArchConfig) -> dict:
+    """One layer's parameter spec (``layers.Draw``s)."""
+    a = attn.mla_init(cfg) if cfg.attention == "mla" else attn.gqa_init(cfg)
+    p = {"attn": a,
+         "norm1": init_norm(cfg.d_model, cfg.norm),
+         "norm2": init_norm(cfg.d_model, cfg.norm)}
+    if cfg.moe is not None:
+        p["moe"] = moe_init(cfg)
+    else:
+        p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, cfg.glu)
+    return p
 
 
 def layer_slices(layers: dict, n_layers: int) -> list:
@@ -47,25 +54,29 @@ def layer_slices(layers: dict, n_layers: int) -> list:
 
 
 def lm_init(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
-    """Random init from ``gen`` (a generator on ``device``)."""
+    """Random init from ``gen`` (a generator on ``device``; None on the
+    meta device): the stacked layers first, then the embeddings."""
     dtype = dt(cfg.param_dtype)
-    layers = _stack([_layer_init(gen, cfg, dtype, device)
-                     for _ in range(cfg.n_layers)])
-    p = {"embed": init_embedding(gen, cfg.vocab, cfg.d_model, dtype, device),
-         "layers": layers,
-         "final_norm": init_norm(cfg.d_model, cfg.norm, dtype, device)}
+    p = {"layers": materialize(_layer_init(cfg), gen, dtype, device,
+                               layers=cfg.n_layers)}
+    rest = {"embed": init_embedding(cfg.vocab, cfg.d_model),
+            "final_norm": init_norm(cfg.d_model, cfg.norm)}
     if not cfg.tie_embeddings:
-        p["unembed"] = init_embedding(gen, cfg.vocab, cfg.d_model, dtype,
-                                      device)
+        rest["unembed"] = init_embedding(cfg.vocab, cfg.d_model)
+    p.update(materialize(rest, gen, dtype, device))
     return p
 
 
 # --------------------------------------------------------------- forward
 
 
-def _mlp_residual(p_l, x, cfg: ArchConfig):
+def _ffn_residual(p_l, x, cfg: ArchConfig):
     h = apply_norm(p_l["norm2"], x, cfg.norm)
-    return x + mlp(p_l["mlp"], h, cfg.act, cfg.glu, dt(cfg.compute_dtype))
+    if cfg.moe is not None:
+        y, _ = moe_block(p_l["moe"], h, cfg)
+    else:
+        y = mlp(p_l["mlp"], h, cfg.act, cfg.glu, dt(cfg.compute_dtype))
+    return x + y
 
 
 def _out_weight(params, cfg: ArchConfig):
@@ -81,10 +92,12 @@ def lm_forward(params, tokens, cfg: ArchConfig):
     B, S = tokens.shape
     x = _embed(params, tokens, cfg)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
+    forward = attn.mla_forward if cfg.attention == "mla" \
+        else attn.gqa_forward
     for p_l in layer_slices(params["layers"], cfg.n_layers):
         h = apply_norm(p_l["norm1"], x, cfg.norm)
-        x = x + attn.gqa_forward(p_l["attn"], h, cfg, positions)
-        x = _mlp_residual(p_l, x, cfg)
+        x = _ffn_residual(p_l, x + forward(p_l["attn"], h, cfg, positions),
+                          cfg)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return unembed(x, _out_weight(params, cfg), dt(cfg.compute_dtype))
 
@@ -93,9 +106,10 @@ def lm_forward(params, tokens, cfg: ArchConfig):
 
 
 def lm_init_cache(cfg: ArchConfig, batch: int, max_seq: int, device) -> dict:
-    """Zeroed per-layer GQA caches, stacked: [L, B, Smax, KVH, hd]."""
-    c = attn.gqa_init_cache(cfg, cfg.n_layers * batch, max_seq,
-                            dt(cfg.param_dtype), device)
+    """Zeroed per-layer caches, stacked on a leading layer axis."""
+    init = attn.mla_init_cache if cfg.attention == "mla" \
+        else attn.gqa_init_cache
+    c = init(cfg, cfg.n_layers * batch, max_seq, dt(cfg.param_dtype), device)
     return {k: v.view(cfg.n_layers, batch, *v.shape[1:])
             for k, v in c.items()}
 
@@ -106,11 +120,13 @@ def lm_prefill(params, tokens, cfg: ArchConfig, cache):
     B, S = tokens.shape
     x = _embed(params, tokens, cfg)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
+    prefill = attn.mla_prefill if cfg.attention == "mla" \
+        else attn.gqa_prefill
     for p_l, c_l in zip(layer_slices(params["layers"], cfg.n_layers),
                         layer_slices(cache, cfg.n_layers)):
         h = apply_norm(p_l["norm1"], x, cfg.norm)
-        y, _ = attn.gqa_prefill(p_l["attn"], h, cfg, c_l, positions)
-        x = _mlp_residual(p_l, x + y, cfg)
+        y, _ = prefill(p_l["attn"], h, cfg, c_l, positions)
+        x = _ffn_residual(p_l, x + y, cfg)
     x = apply_norm(params["final_norm"], x[:, -1:, :], cfg.norm)
     logits = unembed(x, _out_weight(params, cfg), dt(cfg.compute_dtype))
     return logits[:, 0, :], cache
@@ -119,11 +135,12 @@ def lm_prefill(params, tokens, cfg: ArchConfig, cache):
 def lm_decode_step(params, cache, tokens, lengths, cfg: ArchConfig):
     """tokens [B,1], lengths [B] -> (logits [B,V], cache updated in place)."""
     x = _embed(params, tokens, cfg)
+    decode = attn.mla_decode if cfg.attention == "mla" else attn.gqa_decode
     for p_l, c_l in zip(layer_slices(params["layers"], cfg.n_layers),
                         layer_slices(cache, cfg.n_layers)):
         h = apply_norm(p_l["norm1"], x, cfg.norm)
-        y, _ = attn.gqa_decode(p_l["attn"], h, cfg, c_l, lengths)
-        x = _mlp_residual(p_l, x + y, cfg)
+        y, _ = decode(p_l["attn"], h, cfg, c_l, lengths)
+        x = _ffn_residual(p_l, x + y, cfg)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     logits = unembed(x, _out_weight(params, cfg), dt(cfg.compute_dtype))
     return logits[:, 0, :], cache

@@ -73,7 +73,7 @@ def _needs_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("G", [1, 4, 16])
+@pytest.mark.parametrize("G", [1, 4, 6, 16])
 def test_cuda_decode_split_edges(dtype, G):
     """Split-KV decode at chunk edges: lengths 1, 63, 64, 65 and S over a
     cache the planner cuts into 64-position chunks, chunks wholly past the
@@ -128,3 +128,121 @@ def test_cuda_attention_kernels_gqa12(dtype, S, D):
     torch.testing.assert_close(ops.flash_decode(*args).float(),
                                ref.decode_attention_ref(*args).float(),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [40, 512])
+@pytest.mark.parametrize("G", [1, 2])
+def test_cuda_flash_attention_mla_head_dims(dtype, S, G):
+    """``flash_attention`` at MLA's head dims, q/k 192 and v 128, with the
+    model's operands: q and k concatenated [B,S,H,192], v a slice of the
+    decompressed [B,S,H,256] (row stride 256), all as transpose views. MLA
+    has G 1; an even G takes the same one-warpgroup kernel."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(S + G)
+    dt, B, H = TDT[dtype], 2, 4
+    q = (torch.randn(B, S, H, 192, generator=gen, device="cuda").to(dt)
+         .transpose(1, 2))
+    k = (torch.randn(B, S, H // G, 192, generator=gen, device="cuda").to(dt)
+         .transpose(1, 2))
+    kv = torch.randn(B, S, H // G, 256, generator=gen, device="cuda").to(dt)
+    v = kv[..., 128:].transpose(1, 2)
+    tol = TOLS["flash_attention"][dtype]
+    for causal in (True, False):
+        got = ops.flash_attention(q, k, v, causal=causal)
+        assert got.shape == (B, H, S, 128)
+        assert got.transpose(1, 2).is_contiguous()
+        torch.testing.assert_close(
+            got.float(), ref.attention_ref(q, k, v, causal=causal).float(),
+            rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_attention_kernels_grok_serve_shapes(dtype):
+    """Both kernels at grok-1's published heads (48 query heads on 8 KV
+    heads, group 6, D 128) and the shapes its serving gives them: a causal
+    512-token prefill, and decode over a 528-position cache, which the
+    split planner cuts into chunks with a ragged last one."""
+    from repro_torch.configs import get_arch
+    _needs_card()
+    cfg = get_arch("grok-1-314b")
+    H, KVH, D = cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim
+    assert H // KVH == 6
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    dt = TDT[dtype]
+    q, k, v = (torch.randn(1, 512, h, D, generator=gen, device="cuda")
+               .to(dt).transpose(1, 2) for h in (H, KVH, KVH))
+    tol = TOLS["flash_attention"][dtype]
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, causal=True).float(),
+        ref.attention_ref(q, k, v, causal=True).float(), rtol=tol, atol=tol)
+    kc, vc = (torch.randn(1, 528, KVH, D, generator=gen, device="cuda")
+              .to(dt).permute(0, 2, 1, 3) for _ in range(2))
+    q1 = torch.randn(1, H, D, generator=gen, device="cuda").to(dt)
+    tol = TOLS["flash_decode"][dtype]
+    for n in (512, 513, 520, 527):
+        args = (q1, kc, vc, torch.tensor([n], dtype=torch.int32,
+                                         device="cuda"))
+        torch.testing.assert_close(ops.flash_decode(*args).float(),
+                                   ref.decode_attention_ref(*args).float(),
+                                   rtol=tol, atol=tol)
+
+
+def _moe_configs():
+    """1-layer MoE configs at reduced width: grok-1's (GQA, head dim 16)
+    and deepseek-v3's with MLA's published head dims (nope 128, rope 64,
+    v 128), which the kernel takes."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import MLAConfig
+    grok = dataclasses.replace(get_arch("grok-1-314b").reduced(),
+                               n_layers=1)
+    ds = get_arch("deepseek-v3-671b").reduced()
+    ds = dataclasses.replace(ds, n_layers=1, mla=dataclasses.replace(
+        ds.mla, rope_head_dim=64, nope_head_dim=128, v_head_dim=128))
+    assert isinstance(ds.mla, MLAConfig)
+    return {"grok-1-314b": grok, "deepseek-v3-671b": ds}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["grok-1-314b", "deepseek-v3-671b"])
+def test_cuda_moe_model_matches_cpu(arch):
+    """A 1-layer reduced-width MoE model in fp32 on the card (the kernels,
+    ``index_add_`` in the card's order) against the same weights on the
+    CPU (the plain versions): prefill and 4 greedy steps, logits at 1e-4
+    and equal tokens."""
+    _needs_card()
+    from repro_torch.models.api import build_model
+    cfg = _moe_configs()[arch]
+    cpu, card = build_model(cfg, "cpu"), build_model(cfg, "cuda")
+    params = cpu.init(torch.Generator().manual_seed(0))
+
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+
+    on_card = to(params, "cuda")
+    toks = torch.randint(0, cfg.vocab, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+
+    def greedy(model, p, dev):
+        t = toks.to(dev)
+        cache = model.init_cache(p, {"tokens": t}, 2, 48)
+        logits, cache = model.prefill(p, {"tokens": t}, cache)
+        out, tok = [logits], logits.argmax(-1)[:, None]
+        lengths = torch.full((2,), 40, dtype=torch.int32, device=dev)
+        for _ in range(4):
+            logits, cache = model.decode_step(p, cache, tok, lengths)
+            out.append(logits)
+            tok, lengths = logits.argmax(-1)[:, None], lengths + 1
+        return torch.stack(out).cpu()
+
+    ops.reset_launch_counts()
+    got = greedy(card, on_card, "cuda")
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = greedy(cpu, params, "cpu")
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got.argmax(-1), want.argmax(-1))

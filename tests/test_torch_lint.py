@@ -212,7 +212,9 @@ def test_zoo_findings_against_the_reference_baseline(fresh):
     """Per (workload, entrypoint): the port's thrash findings and trips
     beside the reference's ``lint_baseline.json``. The counts differ (the
     port's attention is one op where the reference scans chunks of it);
-    every trip count the port gives is one the reference gives too."""
+    the port finds thrash at an entrypoint where the reference does (both
+    find none in the MoE archs' decode step), and every trip count the
+    port gives is one the reference gives too."""
     ref = json.loads(jlint.BASELINE_PATH.read_text())
     ported, _ = calibrate.ported_archs()
 
@@ -232,8 +234,8 @@ def test_zoo_findings_against_the_reference_baseline(fresh):
             w, g = sorted(want.get(key, [])), sorted(got.get(key, []))
             print(f"{key}: reference {len(w)} {sorted(set(w))}, "
                   f"port {len(g)} {sorted(set(g))}")
-            assert g and set(g) == {L}
-            assert set(g) <= set(w)
+            assert bool(g) == bool(w)
+            assert set(g) <= {L} and set(g) <= set(w)
     assert not [k for k in got if k[0] == "kernel"]
 
 

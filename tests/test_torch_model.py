@@ -1,4 +1,5 @@
-"""The port's dense LM against the JAX reference model.
+"""The port's LM (dense, MoE with GQA or MLA) against the JAX reference
+model.
 
 Weights come from the reference's own ``init`` and are carried across by
 ``repro_torch.bridge.params_from_jax``; prefill logits and 4 greedy decode
@@ -82,6 +83,8 @@ CASES = {
     "qwen-bias-tied": ("qwen1.5-0.5b", {}),
     "chameleon-qknorm-untied": ("chameleon-34b", {}),
     "qwen-gqa-g2": ("qwen1.5-0.5b", {"kv_heads": 2}),
+    "grok-moe-gqa": ("grok-1-314b", {}),
+    "deepseek-moe-mla": ("deepseek-v3-671b", {}),
 }
 
 
@@ -112,7 +115,8 @@ def test_full_forward_matches_reference(case):
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "chameleon-34b",
-                                  "starcoder2-15b"])
+                                  "starcoder2-15b", "grok-1-314b",
+                                  "deepseek-v3-671b"])
 def test_bridge_is_one_to_one(arch):
     """Every reference key lands in the port under the same name and
     shape, and the port's own init has exactly the same keys."""
@@ -139,7 +143,6 @@ def test_bf16_bridge_keeps_values():
 
 
 @pytest.mark.parametrize("arch,slice_", [
-    ("deepseek-v3-671b", "MLA and MoE"), ("grok-1-314b", "MLA and MoE"),
     ("zamba2-2.7b", "Mamba2"),
     ("rwkv6-3b", "RWKV6"), ("whisper-large-v3", "encoder-decoder")])
 def test_unported_families_raise(arch, slice_):

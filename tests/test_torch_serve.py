@@ -49,6 +49,39 @@ def test_engine_tokens_match_reference_greedy():
         assert ex.generated(rid) == want[0].tolist()
 
 
+MOE_ARCHS = ["grok-1-314b", "deepseek-v3-671b"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_serve_cli_completes(arch):
+    """``--arch <moe arch> --reduced --device cpu`` serves; the heavy tag
+    comes from the copied ``derived.json``, which has both archs."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    argv = [*CLI[:CLI.index("--arch")], "--arch", arch,
+            *CLI[CLI.index("--arch") + 2:]]
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *argv],
+        capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "[serve] 4/4 requests" in out.stdout
+    assert "heavy tags (derived.json): ['prefill', 'decode_step']" \
+        in out.stdout
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_engine_tokens_match_reference_greedy(arch):
+    jmodel, jparams, tmodel, tparams = reference_and_port(arch)
+    argv = [*CLI[:CLI.index("--arch")], "--arch", arch,
+            *CLI[CLI.index("--arch") + 2:]]
+    args = serve.build_parser().parse_args(argv)
+    m, ex = serve.run_engine(args, tmodel.cfg, tmodel, tparams)
+    assert m.completed == 4
+    for rid in range(4):
+        _, want = reference_greedy(jmodel, jparams,
+                                   ex.prompts[rid][None, :], 3)
+        assert ex.generated(rid) == want[0].tolist()
+
+
 def test_loop_tokens_match_reference_greedy():
     jmodel, jparams, tmodel, tparams = reference_and_port("qwen1.5-0.5b",
                                                           kv_heads=2)
