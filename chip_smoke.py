@@ -19,7 +19,13 @@ Phases, each ending in one line:
      (2e-2 prefill, 3e-2 decode), at the serving shapes of qwen1.5-0.5b,
      at a GQA shape of starcoder2-15b's widths and ``flash_attention`` at
      deepseek-v3's MLA prefill shape (B1 H128 S512, q/k head dim 192, v
-     head dim 128, v a slice of the decompressed K/V), with one PyTorch
+     head dim 128, v a slice of the decompressed K/V), at phase 10's
+     shapes (zamba2-2.7b's shared block, B1 H32 KVH32 D80: S512 causal
+     prefill, decode over a 576-position cache; stablelm-12b, B1 H32 KVH8
+     D160: S512, a 528-position cache; decode at the prompt's length, the
+     first, 16th, middle and last steps'; the bf16 prefill and first
+     decode step timed),
+     with one PyTorch
      library call's time (``scaled_dot_product_attention``, a yardstick
      the port never calls). ``chacha20`` bit-exact (0 mismatched words) on
      the RFC 7539 vector, across the 2^32 counter wrap at a block count
@@ -48,7 +54,7 @@ Phases, each ending in one line:
      kernels' plain versions swapped in, on the card; and the served bf16
      ``unembed`` against fp32 sums, to show its logits stay fp32;
   6. calibration: ``repro_torch.analysis.calibrate.main`` on the card at
-     the full published configs of the seven ported archs, with the launch
+     the full published configs of the eight ported archs, with the launch
      counters reset just before and read just after: all three kernels
      must launch, each kernel and every arch's ``prefill`` must be tagged
      heavy as in the reference's ``derived.json`` (``decode_step``'s tags
@@ -83,6 +89,19 @@ Phases, each ending in one line:
      decode steps printed; then each at 1 layer in fp32 through the
      end-to-end check of phase 5, with the routing choices the kernel and
      plain runs share;
+ 10. zamba2-2.7b (the hybrid: 54 Mamba2 layers, the shared attention
+     block at head dim 80 nine times) and stablelm-12b (40 layers, head
+     dim 160) whole at their published widths in bf16, one after the
+     other, each served through ``repro_torch.launch.serve.run_engine``
+     (4 requests, 512-token prompts, 64 and 16 new tokens, batch 2) with
+     the launch counters reset just before and read just after (both
+     attention kernels must launch once a shared-block application or a
+     layer, prefill and decode), TTFT/ITL, the weights' and the peak
+     memory and a profiled prefill and decode steps printed; for the
+     hybrid also the SSD chunk loop at a 512- and a 509-token prompt
+     (chunk 128 and 1: iterations, kernels, time) and the share of a
+     prefill and a decode step in the SSD core; then each in fp32 at 6
+     and 2 layers through the end-to-end check of phase 5;
 then the ``kernels`` JSON line, the card line, and the result line.
 
 Any failed phase exits non-zero. Nothing runs on the CPU in place of the
@@ -91,6 +110,7 @@ card: without CUDA the script fails.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import statistics
@@ -115,6 +135,18 @@ CALIB_OUT = ROOT / "build" / "repro_torch" / "derived_cuda.json"
 # phase 9: the moe family at full width, depth cut to what one H100 holds
 MOE_DEPTH = {"grok-1-314b": 4, "deepseek-v3-671b": 2}
 MOE_SERVE = dict(requests=4, prompt=512, max_new=16, batch=2)
+# phase 10: zamba2-2.7b whole (54 layers) and stablelm-12b whole (40
+# layers) at their published widths in bf16; the depth of each one's fp32
+# end-to-end check (the hybrid's: one group of six Mamba2 layers and the
+# shared block)
+WIDE_SERVE = {"zamba2-2.7b": dict(requests=4, prompt=512, max_new=64,
+                                  batch=2),
+              "stablelm-12b": dict(requests=4, prompt=512, max_new=16,
+                                   batch=2)}
+WIDE_E2E_DEPTH = {"zamba2-2.7b": 6, "stablelm-12b": 2}
+# the prompts whose SSD chunk loop phase 10 counts: the served one (chunks
+# of 128) and a prime one, which the chunk shrinks to divide (Q = 1)
+SSD_PROMPTS = (512, 509)
 # decode timings rotate over copies of their inputs that together exceed
 # the H100's 50 MB L2 cache
 ROTATE_BYTES = 75e6
@@ -628,19 +660,21 @@ def cluster_decode_checks(dname, dtype, gen):
     return checks
 
 
-def moe_shape_checks(dname, dtype, gen):
-    """The attention kernels at the shapes phase 9's archs give them (heads
-    from the published configs, sizes from ``MOE_SERVE``): the causal
-    prefill of one prompt, and for GQA decode over the executor's batch-1
-    cache of ``prompt + max_new`` positions, which the split planner cuts
-    into chunks with a ragged last one. Lengths: the prompt, the first
-    decode step's, one midway and the last's."""
+def serve_shape_checks(runs, dname, dtype, gen, timed=False):
+    """The attention kernels at the shapes that the archs of ``runs`` (arch
+    -> serve settings) give them when served, heads from the published
+    configs: the causal prefill of one prompt, and for GQA decode over the
+    executor's batch-1 cache of ``prompt + max_new`` positions, which the
+    split planner cuts into chunks with a ragged last one. Lengths: the
+    prompt, the first decode step's, the 16th's, one midway and the
+    last's. With ``timed``, the prefill and the first decode step are
+    timed."""
     from repro_torch.configs import get_arch
-    P, N = MOE_SERVE["prompt"], MOE_SERVE["max_new"]
-    S = P + N
     checks = {"flash_attention": [], "flash_decode": []}
-    for arch in MOE_DEPTH:
+    for arch, run in runs.items():
         cfg = get_arch(arch)
+        P, N = run["prompt"], run["max_new"]
+        S = P + N
         if cfg.attention == "mla":
             H, m = cfg.n_heads, cfg.mla
             D, Dv = m.nope_head_dim + m.rope_head_dim, m.v_head_dim
@@ -648,18 +682,18 @@ def moe_shape_checks(dname, dtype, gen):
                 "flash_attention",
                 prefill_case(1, H, H, P, D, dtype, True, gen, Dv=Dv),
                 f"{arch} B1 H{H} KVH{H} S{P} Dqk{D} Dv{Dv} causal", dname,
-                False))
+                timed))
             continue
         H, KVH, D = cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim
         checks["flash_attention"].append(check_kernel(
             "flash_attention", prefill_case(1, H, KVH, P, D, dtype, True, gen),
-            f"{arch} B1 H{H} KVH{KVH} S{P} D{D} causal", dname, False))
-        for length in (P, P + 1, P + N // 2, S - 1):
+            f"{arch} B1 H{H} KVH{KVH} S{P} D{D} causal", dname, timed))
+        for length in sorted({P, P + 1, P + 15, P + N // 2, S - 1}):
             checks["flash_decode"].append(check_kernel(
                 "flash_decode",
                 decode_case(1, H, KVH, S, D, dtype, [length], gen),
                 f"{arch} B1 H{H} KVH{KVH} S{S} D{D} len{length}", dname,
-                False))
+                timed and length == P + 1))
     return checks
 
 
@@ -703,8 +737,11 @@ def kernel_phase():
                          dname, timed),
         ]
         results["flash_decode"] += cluster_decode_checks(dname, dtype, gen)
-        for name, checks in moe_shape_checks(dname, dtype, gen).items():
-            results[name] += checks
+        for runs, timed in (({a: MOE_SERVE for a in MOE_DEPTH}, False),
+                            (WIDE_SERVE, dname == "bfloat16")):
+            for name, checks in serve_shape_checks(runs, dname, dtype, gen,
+                                                   timed).items():
+                results[name] += checks
     for name, checks in calibration_shape_checks(gen).items():
         results[name] += checks
     bad = [(n, r["shape"], r["dtype"]) for n, rs in results.items()
@@ -1129,79 +1166,83 @@ def cluster_phase():
     return launches, s, time.perf_counter() - t0
 
 
-def moe_phase():
-    """The moe family at full width: for each arch in turn, its published
-    config cut to ``MOE_DEPTH`` layers in bf16, served through
+def full_width_phase(runs):
+    """Archs at their published widths in bf16, one after the other: for
+    each ``(cfg, serve settings, end-to-end depth)`` of ``runs``, the
+    model built and initialised on the card, served through
     ``serve.run_engine`` with the launch counters reset just before and
-    read just after, a profiled prefill and decode steps, then freed; and
-    the fp32 end-to-end check at 1 layer. Returns each arch's serving
-    launches."""
-    import dataclasses
-    import gc
-
+    read just after (``flash_attention`` once a layer, or once an
+    application of the hybrid's shared block, a request; ``flash_decode``
+    as often a decode step, and never on MLA's absorbed decode), its
+    memory and a profiled prefill and decode steps printed, MLA's decode
+    held to ``mla_decode_naive`` and the hybrid's SSD chunk loop measured
+    (``ssd_phase``), then freed; and the fp32 end-to-end check of phase 5
+    at the end-to-end depth. Returns each arch's serving launches."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models.api import build_model
 
-    def free():
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-
     out = {}
-    for arch, depth in MOE_DEPTH.items():
-        free()
-        cfg = dataclasses.replace(get_arch(arch), n_layers=depth)
+    for cfg, run, e2e_depth in runs:
+        arch = cfg.name
+        free_cuda()
         model = build_model(cfg, "cuda")
         t0 = time.perf_counter()
         params = model.init(torch.Generator(device="cuda").manual_seed(0))
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         weights = torch.cuda.memory_allocated()
-        say(f"  {arch}: {depth} of {get_arch(arch).n_layers} layers at "
-            f"d {cfg.d_model}, {cfg.param_count() / 1e9:.2f}B params, "
-            f"{weights / 1e9:.2f} GB of bf16 weights on the card, "
+        say(f"  {arch}: {cfg.n_layers} of {get_arch(arch).n_layers} layers "
+            f"at d {cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads x "
+            f"{cfg.resolved_head_dim}, {cfg.param_count() / 1e9:.2f}B "
+            f"params, {weights / 1e9:.2f} GB of bf16 weights on the card, "
             f"initialised in {init_s:.1f}s (peak "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
         args = serve.build_parser().parse_args(
-            ["--arch", arch] + serve_argv("engine", MOE_SERVE)[2:])
+            ["--arch", arch] + serve_argv("engine", run)[2:])
         ops.reset_launch_counts()
         m, ex = serve.run_engine(args, cfg, model, params)
         launches = ops.launch_counts()
         s = m.summary()
-        n, N = MOE_SERVE["requests"], MOE_SERVE["max_new"]
+        n, N = run["requests"], run["max_new"]
         say(f"  {arch} serving: {m.completed}/{n} requests, ttft p50/p99 "
             f"{s['ttft_p50_ms']:.3f}/{s['ttft_p99_ms']:.3f} ms, itl p50/p99 "
             f"{s['itl_p50_ms']:.3f}/{s['itl_p99_ms']:.3f} ms, launches "
-            f"{launches}, max memory allocated "
-            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            f"{launches}, weights {weights / 1e9:.2f} GB, max memory "
+            f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         require(m.completed == n, f"{arch}: {m.completed}/{n} completed")
         for rid in range(n):
             toks = ex.generated(rid)
             require(len(toks) == N and all(0 <= t < cfg.vocab for t in toks),
                     f"{arch} request {rid}: tokens {toks[:8]}...")
-        require(launches["flash_attention"] >= n * depth,
+        attn = cfg.n_layers // (cfg.hybrid.shared_attn_every
+                                if cfg.hybrid else 1)
+        require(launches["flash_attention"] >= n * attn,
                 f"{arch}: flash_attention launched "
-                f"{launches['flash_attention']} times")
+                f"{launches['flash_attention']} times, expected >= {n * attn}")
         if cfg.attention == "mla":      # absorbed decode: matrix products
             require(launches["flash_decode"] == 0,
                     f"{arch}: flash_decode launched {launches['flash_decode']}"
                     " times on MLA's path")
         else:
-            require(launches["flash_decode"] >= n * (N - 1) * depth,
+            require(launches["flash_decode"] >= n * (N - 1) * attn,
                     f"{arch}: flash_decode launched "
-                    f"{launches['flash_decode']} times")
+                    f"{launches['flash_decode']} times, expected >= "
+                    f"{n * (N - 1) * attn}")
         say(f"  {arch} where a serving step's time goes (torch.profiler):")
         profile_phase(model, params, steps=4, top=8)
         if cfg.attention == "mla":
             mla_decode_check(cfg, params)
+        if cfg.hybrid is not None:
+            ssd_phase(model, params)
         out[arch] = launches
         del model, params, ex, m
-        free()
-        end_to_end_phase(dataclasses.replace(get_arch(arch), n_layers=1))
-    free()
+        free_cuda()
+        end_to_end_phase(dataclasses.replace(get_arch(arch),
+                                             n_layers=e2e_depth))
+    free_cuda()
     return out
 
 
@@ -1235,6 +1276,103 @@ def mla_decode_check(cfg, params, tol: float = 2e-2):
     require(bool(torch.isfinite(a).all()) and err <= tol * scale,
             f"{cfg.name}: absorbed MLA decode disagrees with the naive "
             f"form ({err:.4g} against {tol * scale:.4g})")
+
+
+def free_cuda():
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def ssd_phase(model, params):
+    """The hybrid's SSD chunk loop on the card. For layer 0's Mamba2
+    prefill at each of ``SSD_PROMPTS`` (full width, a random bf16 residual
+    stream): the chunk it runs with, the loop's iterations, the CUDA
+    kernels the layer launches (``torch.profiler``) and its time between
+    synchronisations, and those kernels times the layer count for one
+    prefill's Mamba2 layers. Then the share of a served prefill spent in
+    ``_ssd_chunk_scan`` and of a decode step in the Mamba2 layers, each
+    timed between synchronisations inside one synchronised step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import hybrid, mamba2
+    from repro_torch.models.transformer import layer_slices
+    cfg = model.cfg
+    p0 = layer_slices(params["layers"], cfg.n_layers)[0]["m"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for P in SSD_PROMPTS:
+        Q = mamba2._chunk_len(P, cfg.ssm.chunk)
+        x = torch.randn(1, P, cfg.d_model, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+
+        def layer():
+            return mamba2.mamba2_prefill(
+                p0, x, cfg, mamba2.mamba2_init_state(cfg, 1, "cuda"))
+
+        layer()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, _ = layer()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        require(bool(torch.isfinite(y).all()),
+                f"Mamba2 prefill at prompt {P} not finite")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            layer()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        dev_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+        say(f"  SSD chunk loop at prompt {P}: chunk {Q}, {P // Q} "
+            f"iterations a layer; layer 0's prefill launches {len(kern)} "
+            f"CUDA kernels ({dev_ms:.3f} ms of device time) in {ms:.3f} ms; "
+            f"x {cfg.n_layers} layers = {len(kern) * cfg.n_layers} kernels "
+            "in one prefill's Mamba2 layers")
+
+    spent = {"scan": 0.0, "mamba": 0.0}
+
+    def timed(key, fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return call
+
+    P = WIDE_SERVE[cfg.name]["prompt"]
+    toks = torch.randint(0, cfg.vocab, (1, P), device="cuda",
+                         generator=gen)
+    scan, decode = mamba2._ssd_chunk_scan, hybrid.mamba2_decode
+    mamba2._ssd_chunk_scan = timed("scan", scan)
+    hybrid.mamba2_decode = timed("mamba", decode)
+    try:
+        cache = model.init_cache(params, None, 1, P + 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": toks}, cache)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model.decode_step(params, cache, logits.argmax(-1)[:, None],
+                          torch.full((1,), P, dtype=torch.int32,
+                                     device="cuda"))
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+    finally:
+        mamba2._ssd_chunk_scan, hybrid.mamba2_decode = scan, decode
+    say(f"  SSD share at prompt {P}: _ssd_chunk_scan {spent['scan'] * 1e3:.3f}"
+        f" of {pre_s * 1e3:.3f} ms of a prefill "
+        f"({spent['scan'] / pre_s:.3f}); the Mamba2 layers "
+        f"{spent['mamba'] * 1e3:.3f} of {dec_s * 1e3:.3f} ms of a decode step "
+        f"({spent['mamba'] / dec_s:.3f}); each timed between "
+        "synchronisations, which the step's time includes")
 
 
 def lint_phase():
@@ -1334,10 +1472,21 @@ def main() -> int:
         say("phase 9 the moe family at full width (grok-1-314b, "
             "deepseek-v3-671b):")
         del m, ex                       # phase 4's served model
+        from repro_torch.configs import get_arch
         t9 = time.perf_counter()
-        moe_launches = moe_phase()
+        moe_launches = full_width_phase(
+            [(dataclasses.replace(get_arch(arch), n_layers=depth), MOE_SERVE,
+              1) for arch, depth in MOE_DEPTH.items()])
         say(f"phase 9 moe: both archs served and checked, "
             f"{time.perf_counter() - t9:.1f}s wall")
+
+        say("phase 10 zamba2-2.7b and stablelm-12b whole at full width:")
+        t10 = time.perf_counter()
+        wide_launches = full_width_phase(
+            [(get_arch(arch), run, WIDE_E2E_DEPTH[arch])
+             for arch, run in WIDE_SERVE.items()])
+        say(f"phase 10 wide: both archs served and checked, "
+            f"{time.perf_counter() - t10:.1f}s wall")
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -1358,7 +1507,8 @@ def main() -> int:
                                  "cluster": cluster_launches[name],
                                  "lint": lint_launches[name],
                                  **{f"serve {arch}": n[name] for arch, n
-                                    in moe_launches.items()}},
+                                    in {**moe_launches,
+                                        **wide_launches}.items()}},
             "max_abs_err": main_case["max_abs_err"],
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],

@@ -34,9 +34,14 @@ each layer's ops. Before scoring, :func:`fold_layers` finds the run of L
 identical consecutive op subsequences (same op names and costs) in the
 stream and segments prologue ops at trips 1, one layer's ops at trips L
 and epilogue ops at trips 1, merging leaves only at equal level and
-equal trips, as the reference's builder does. A stream with no such run
-(the kernel suite) is segmented as it is. Calibration does not fold: its
-artifact, ``derived_cuda.json``, stays as ``segment`` gives it.
+equal trips, as the reference's segmentation does. The hybrid nests its
+repeats (:func:`fold_counts`): 9 groups, each 6 Mamba2 layers and the
+shared block, and in prefill an SSD chunk loop inside each layer; they
+fold level by level (:func:`fold_parts`) to the reference's trips, 9 for
+the shared block, 54 for a layer and 54 x chunks for the chunk loop's
+body. A stream with no such run (the kernel suite) is segmented as it
+is. Calibration does not fold: its artifact, ``derived_cuda.json``,
+stays as ``segment`` gives it.
 
 ``--check-baseline`` keeps the reference's rules: it fails when the
 findings drift from the committed ``lint_baseline_cuda.json`` and on any
@@ -51,6 +56,8 @@ import sys
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from repro_torch.analysis.costs import EqnCost
 from repro_torch.analysis.regions import (FOLD_FRAC, MachineModel,
@@ -89,35 +96,79 @@ def layer_run(keys: Sequence, n_layers: int) -> Optional[Tuple[int, int]]:
     subsequences of ``keys`` that covers the most of it (earliest start
     on a tie), or None. A period found this way is a whole layer: a
     shorter repeat inside a layer cannot repeat ``n_layers`` times across
-    layers unless the layer itself does."""
+    layers unless the layer itself does.
+
+    The keys are numbered once (equal keys, equal numbers) and compared in
+    place, a period at a time: a run of period p needs ``span = (n_layers -
+    1) p`` consecutive positions i with ``keys[i] == keys[i + p]``. Every
+    such window holds one multiple of ``span``, so a period whose sampled
+    positions ``0, span, 2 span, ...`` all differ is passed over after
+    ``n / span`` compares; the search over a stream with no run costs
+    O(n log n), not the cubic time of comparing slices."""
     n = len(keys)
     if n_layers < 2:
         return None
+    ids: Dict = {}
+    arr = np.fromiter((ids.setdefault(k, len(ids)) for k in keys),
+                      dtype=np.int64, count=n)
     for period in range(n // n_layers, 0, -1):
         span = (n_layers - 1) * period
-        for start in range(n - n_layers * period + 1):
-            if keys[start:start + span] == \
-                    keys[start + period:start + period + span]:
-                return start, period
+        m = n - period                  # positions i with i + period < n
+        if not (arr[0:m:span] == arr[period::span]).any():
+            continue
+        differ = np.flatnonzero(arr[:m] != arr[period:])
+        edges = np.concatenate(([-1], differ, [m]))
+        runs = np.flatnonzero(np.diff(edges) - 1 >= span)
+        if runs.size:
+            return int(edges[runs[0]]) + 1, period
     return None
 
 
-def fold_layers(ops: List[Tuple[str, EqnCost]], n_layers: int,
+def fold_parts(ops: Sequence, counts: Sequence[int]) -> List[Tuple[list, int]]:
+    """A stream cut into ``(ops, trips)`` parts in stream order, with
+    nested repeats folded: the run of ``counts[0]`` repeats is found in the
+    stream (``layer_run``), the run of ``counts[1]`` inside one repeat of
+    it, and so on, each inner body at the product of the counts around
+    it; what lies before and after a run keeps its outer trips. A level
+    whose run is not found leaves its stream as it is."""
+    def nest(seq, counts, trips):
+        run = layer_run(seq, counts[0]) if counts else None
+        if run is None:
+            return [(list(seq), trips)]
+        start, period = run
+        end = start + counts[0] * period
+        return ([(list(seq[:start]), trips)]
+                + nest(seq[start:start + period], counts[1:],
+                       trips * counts[0])
+                + [(list(seq[end:]), trips)])
+    return nest(ops, tuple(counts), 1)
+
+
+def fold_counts(cfg, entrypoint: str, prompt: int) -> Tuple[int, ...]:
+    """The repeats nested in an entrypoint's op stream, outermost first:
+    the layer loop (``n_layers``); for the hybrid the groups, the Mamba2
+    layers of a group and, in prefill, the SSD chunk loop of a layer
+    (``prompt`` / the chunk it runs with). These are the reference's
+    nested scans: its lint walks them to the same trips."""
+    if cfg.hybrid is None:
+        return (cfg.n_layers,)
+    from repro_torch.models.hybrid import _groups
+    from repro_torch.models.mamba2 import _chunk_len
+    counts = _groups(cfg)
+    if entrypoint == "prefill":
+        counts += (prompt // _chunk_len(prompt, cfg.ssm.chunk),)
+    return counts
+
+
+def fold_layers(ops: List[Tuple[str, EqnCost]], counts: Sequence[int],
                 name: str, machine: MachineModel = MachineModel(),
                 fold_frac: float = FOLD_FRAC) -> RegionTimeline:
-    """Segment a recorded op stream (``regions.record``) with its
-    ``n_layers`` repeats of one layer folded into one body at
-    ``trips = n_layers``: the timeline the reference's scan walk gives."""
-    run = layer_run(ops, n_layers)
-    if run is None:
-        parts = [(ops, 1)]
-    else:
-        start, period = run
-        end = start + n_layers * period
-        parts = [(ops[:start], 1), (ops[start:start + period], n_layers),
-                 (ops[end:], 1)]
+    """Segment a recorded op stream (``regions.record``) with its nested
+    repeats folded by ``fold_parts`` (``(n_layers,)``: the layer loop's
+    repeats of one layer into one body at ``trips = n_layers``): the
+    timeline the reference's scan walk gives."""
     builder = _Builder(machine)
-    for part, trips in parts:
+    for part, trips in fold_parts(ops, counts):
         for prim, cost in part:
             builder.leaf(prim, cost, trips)
         builder.flush()
@@ -130,12 +181,13 @@ def folded_model_timelines(arch: str,
                            ) -> Dict[str, RegionTimeline]:
     """One architecture's prefill and decode entrypoints at its published
     config, as calibration traces them on the meta device, with the layer
-    repeats folded."""
+    repeats (and the hybrid's nested repeats) folded."""
     from repro_torch.analysis.calibrate import CALIB_PROMPT, entrypoints
     from repro_torch.configs import get_arch
 
     acfg = get_arch(arch)
-    return {name: fold_layers(record(fn, *args), acfg.n_layers, name,
+    return {name: fold_layers(record(fn, *args),
+                              fold_counts(acfg, name, CALIB_PROMPT), name,
                               machine)
             for name, (fn, args) in entrypoints(acfg, CALIB_PROMPT).items()}
 

@@ -1,7 +1,7 @@
 // flash_attention: prefill attention, softmax(Q K^T / sqrt(DQK), causal or not) V,
 // with GQA (query head h reads KV head h / G). Q and K have head dim DQK, V and
-// the output DV: DQK = DV in {16, 32, 64, 128}, or MLA's DQK 192 (nope 128 +
-// rope 64) with DV 128.
+// the output DV: DQK = DV in {16, 32, 64, 80, 128, 160}, or MLA's DQK 192
+// (nope 128 + rope 64) with DV 128.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py::flash_attention
 // (body _fa_kernel). On the TPU the KV axis is a sequential grid axis that
@@ -68,6 +68,14 @@
 // us on the tensor cores). A 192-wide row is 24 core matrices, which 128
 // threads do not divide into whole rows, so its tiles are copied chunk by chunk
 // (load_tile's general path). Simple and right first; its time is in PERF.md.
+//
+// D 80 (zamba2's shared block) and 160 (stablelm-12b): S takes 5 or 10 k16
+// steps and P V one wgmma m64n80k16 or m64n160k16 a step (N a multiple of 8
+// up to 256), the tiles stay in core-matrix order (10 or 20 core matrices a
+// row, copied chunk by chunk as at 192), three stages at 80 and two at 160
+// (20 KB a tile: 100 KB with one warpgroup, 120 KB with two). Nothing is
+// padded or copied outside the kernel. Simple and right first; its times
+// are in PERF.md.
 //
 // fp32 keeps the first kernel's design: exact fp32 FMA on the CUDA cores
 // (the reference's 2e-5 tolerance rules out TF32), 32x32 tiles widened to
@@ -316,9 +324,9 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
 // Eight consecutive threads fill one core matrix (128 contiguous bytes).
 // Thread t of the NT that copy takes chunks t, t + NT, ... (only the first
 // 64 * D / 8 threads when NT is more). Where NT is a multiple of D (every
-// D but 192) that is one column block, rows NT / (D / 8) apart, so its
-// source pointer only steps; otherwise each chunk's row and column are
-// computed on their own.
+// D but 80, 160 and 192) that is one column block, rows NT / (D / 8) apart,
+// so its source pointer only steps; otherwise each chunk's row and column
+// are computed on their own.
 template <int D, int NT>
 __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
                                           long long rs, int row0, int S, int t) {
@@ -327,10 +335,13 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
   constexpr int RSTEP = LT / CPR;       // rows between a thread's chunks
   if (LT < NT && t >= LT) return;
   if constexpr (LT % D != 0) {
-    static_assert(64 * CPR % LT == 0, "a tile's chunks split unevenly");
+    // a tile's chunks: LT each, the last pass short where LT does not
+    // divide them (D 80 with 256 threads)
+    constexpr int CH = 64 * CPR;
 #pragma unroll
-    for (int j = 0; j < 64 * CPR / LT; ++j) {
+    for (int j = 0; j < (CH + LT - 1) / LT; ++j) {
       const int i = t + j * LT;
+      if (CH % LT != 0 && i >= CH) break;
       const int row = row0 + (i / 8 / CPR) * 8 + i % 8;
       const bool ok = row < S;
       cp_async_16(dst + 16 * i, ok ? src + row * rs + (i / 8 % CPR) * 8 : src, ok);
@@ -416,6 +427,17 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 80] (+)= A[64 x 16] B[16 x 80], A in registers, B N-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A in registers, B N-major in shared memory
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
                                               uint64_t db, int accumulate) {
@@ -427,6 +449,17 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+// D[64 x 160] (+)= A[64 x 16] B[16 x 160], A in registers, B N-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n160(float (&d)[80], const uint32_t (&a)[4],
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 // O[64 x D] += P[64 x 16] V[16 x D]
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4],
@@ -434,7 +467,9 @@ __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[
   if constexpr (D == 16) wgmma_rs_n16(o, a, db, 1);
   else if constexpr (D == 32) wgmma_rs_n32(o, a, db, 1);
   else if constexpr (D == 64) wgmma_rs_n64(o, a, db, 1);
-  else wgmma_rs_n128(o, a, db, 1);
+  else if constexpr (D == 80) wgmma_rs_n80(o, a, db, 1);
+  else if constexpr (D == 128) wgmma_rs_n128(o, a, db, 1);
+  else wgmma_rs_n160(o, a, db, 1);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -669,7 +704,9 @@ cudaError_t dispatch_d(int DQK, int DV, const void* q, const void* k,
     case 16: return launch_dims<T, 16, 16>(q, k, v, o, B, H, KVH, S, st, causal, stream);
     case 32: return launch_dims<T, 32, 32>(q, k, v, o, B, H, KVH, S, st, causal, stream);
     case 64: return launch_dims<T, 64, 64>(q, k, v, o, B, H, KVH, S, st, causal, stream);
+    case 80: return launch_dims<T, 80, 80>(q, k, v, o, B, H, KVH, S, st, causal, stream);
     case 128: return launch_dims<T, 128, 128>(q, k, v, o, B, H, KVH, S, st, causal, stream);
+    case 160: return launch_dims<T, 160, 160>(q, k, v, o, B, H, KVH, S, st, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -684,8 +721,8 @@ int smem_dims(int dtype, bool two) {
 }  // namespace
 
 // q [B,H,S,DQK], k [B,KVH,S,DQK], v [B,KVH,S,DV], o [B,H,S,DV]; scores are
-// scaled by 1/sqrt(DQK). (DQK, DV) is (D, D) for D in {16, 32, 64, 128} or
-// (192, 128). Strides (in elements) are (batch, head, sequence) for q, k, v,
+// scaled by 1/sqrt(DQK). (DQK, DV) is (D, D) for D in {16, 32, 64, 80, 128,
+// 160} or (192, 128). Strides (in elements) are (batch, head, sequence) for q, k, v,
 // o in that order: 12 values.
 // Returns the launch's cudaGetLastError().
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -712,7 +749,9 @@ extern "C" int flash_attention_smem_bytes(int dtype, int DQK, int DV, int G) {
     case 16: return smem_dims<16, 16>(dtype, two);
     case 32: return smem_dims<32, 32>(dtype, two);
     case 64: return smem_dims<64, 64>(dtype, two);
+    case 80: return smem_dims<80, 80>(dtype, two);
     case 128: return smem_dims<128, 128>(dtype, two);
+    case 160: return smem_dims<160, 160>(dtype, two);
     default: return -1;
   }
 }

@@ -46,6 +46,17 @@
 // (every partial is empty). fp32 and bf16 share the design; the arithmetic
 // is fp32 in both, the softmax in base 2 (scores prescaled by log2 e).
 //
+// Rows whose 16-byte vectors do not divide a warp (D = 80 and 160: 10 or 20
+// vectors in bf16, 20 or 40 in fp32): a row's lanes are rounded up to a
+// power of two (LPR, at most 32), each lane takes VPL vectors of the row,
+// vectors LPR apart, and the spare slots are masked: they load nothing,
+// score 0 and are never written out, so the shuffle reductions stay over
+// LPR lanes as for the other dims. bf16 D80 then keeps 10 of a row's 16
+// lanes busy, bf16 D160 and fp32 D80 20 of 32, fp32 D160 40 of 64 slots.
+// Where the group's query heads and the warps' partials do not fit the 48 KB
+// of static shared memory side by side (D160 at a group of 16), the partials
+// reuse the query heads' buffer after a barrier.
+//
 // Layout: q [B, H, D], k/v [B, KVH, S, D] and o [B, H, D] are passed with
 // their strides and a contiguous last dimension, so the model's cache
 // [B, Smax, KVH, D] goes in as a permute view, never copied.
@@ -67,6 +78,20 @@ constexpr double LOG2E = 1.4426950408889634;
 constexpr int MERGE_BATCH = 8;
 
 template <int GT> struct Unroll { static constexpr int N = GT <= 2 ? 4 : GT <= 4 ? 2 : 1; };
+
+// How a row of D elements of T maps onto a warp: E elements a 16-byte
+// vector, NV vectors a row, LPR lanes a row (NV rounded up to a power of
+// two, at most a warp), VPL vectors a lane; PAD when some of the LPR x VPL
+// slots lie past the row.
+template <typename T, int D> struct RowMap {
+  static constexpr int E = 16 / sizeof(T);
+  static constexpr int NV = D / E;
+  static_assert(NV * E == D, "a row is whole 16-byte vectors");
+  static constexpr int LPR = NV > 16 ? 32 : NV > 8 ? 16 : NV > 4 ? 8
+                           : NV > 2 ? 4 : NV > 1 ? 2 : 1;
+  static constexpr int VPL = (NV + LPR - 1) / LPR;
+  static constexpr bool PAD = LPR * VPL != NV;
+};
 
 // 16 loaded bytes widened to fp32
 __device__ __forceinline__ void widen(const uint4& raw, float* out, const float*) {
@@ -108,47 +133,60 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           long long vb, long long vh, long long vs,
                           long long ob, long long oh, int* __restrict__ counters,
                           float scale_log2) {
-  constexpr int E = 16 / sizeof(T);     // elements a lane loads from a row
-  constexpr int LPR = D / E;            // lanes that share a row
+  using RM = RowMap<T, D>;
+  constexpr int E = RM::E;              // elements of one 16-byte vector
+  constexpr int LPR = RM::LPR;          // lanes that share a row
+  constexpr int VPL = RM::VPL;          // vectors a lane loads from a row
   constexpr int RPW = 32 / LPR;         // rows a warp loads an instruction
   constexpr int RPB = RPW * WARPS;      // rows the block loads an instruction
   constexpr int U = Unroll<GT>::N;
-  __shared__ __align__(16) float q_s[GT * D];
+  // the partials take the query heads' buffer where both do not fit
+  constexpr bool ALIAS = (1 + WARPS) * GT * D * sizeof(float) > 40 * 1024;
+  __shared__ __align__(16) float q_s[ALIAS ? WARPS * GT * D : GT * D];
   __shared__ float m_s[WARPS * GT], l_s[WARPS * GT];
-  __shared__ __align__(16) float a_s[WARPS * GT * D];
+  __shared__ __align__(16) float a_own[ALIAS ? 4 : WARPS * GT * D];
+  float* const a_s = ALIAS ? q_s : a_own;
 
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int splits = gridDim.x, KVH = gridDim.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int slot = lane / LPR;          // the warp's row this lane loads
-  const int c0 = (lane % LPR) * E;      // its first dimension
+  const int c0 = (lane % LPR) * E;      // its first dimension; its vector j
+  //                                       starts j * LPR * E further on
+  bool vok[VPL];                        // which of its vectors lie in the row
+#pragma unroll
+  for (int j = 0; j < VPL; ++j) vok[j] = !RM::PAD || c0 + j * LPR * E < D;
   const int len = max(0, min(lengths[b], S));
   const int r0 = split * chunk;
   const int r1 = min(r0 + chunk, len);
 
-  float m[GT], l[GT], acc[GT][E];
+  float m[GT], l[GT], acc[GT][VPL * E];
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
     m[g] = NEG_INF;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < VPL * E; ++e) acc[g][e] = 0.f;
   }
 
   if (r0 < r1) {                        // the same for the whole block
     const T* kp = k + b * kb + kvh * kh + c0;
     const T* vp = v + b * vb + kvh * vh + c0;
-    uint4 kr[U], vr[U];
+    uint4 kr[U][VPL], vr[U][VPL];
     bool ok[U];
     auto load_rows = [&](int base) {
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int row = base + u * RPB + slot;
         ok[u] = row < r1;
-        kr[u] = ok[u] ? *reinterpret_cast<const uint4*>(kp + row * ks)
-                      : make_uint4(0, 0, 0, 0);
-        vr[u] = ok[u] ? *reinterpret_cast<const uint4*>(vp + row * vs)
-                      : make_uint4(0, 0, 0, 0);
+#pragma unroll
+        for (int j = 0; j < VPL; ++j) {
+          const bool in = ok[u] && vok[j];
+          kr[u][j] = in ? *reinterpret_cast<const uint4*>(kp + row * ks + j * LPR * E)
+                        : make_uint4(0, 0, 0, 0);
+          vr[u][j] = in ? *reinterpret_cast<const uint4*>(vp + row * vs + j * LPR * E)
+                        : make_uint4(0, 0, 0, 0);
+        }
       }
     };
     // the first rows are in flight while the group's query heads
@@ -167,21 +205,27 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float s[U][GT];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        float kf[E];
-        widen(kr[u], kf, static_cast<const T*>(nullptr));
 #pragma unroll
-        for (int g = 0; g < GT; ++g) {
-          const float* qg = q_s + g * D + c0;
-          float acc_s = 0.f;
+        for (int g = 0; g < GT; ++g) s[u][g] = 0.f;
 #pragma unroll
-          for (int e = 0; e < E; e += 4) {
-            const float4 q4 = *reinterpret_cast<const float4*>(qg + e);
-            acc_s = fmaf(q4.x, kf[e], acc_s);
-            acc_s = fmaf(q4.y, kf[e + 1], acc_s);
-            acc_s = fmaf(q4.z, kf[e + 2], acc_s);
-            acc_s = fmaf(q4.w, kf[e + 3], acc_s);
+        for (int j = 0; j < VPL; ++j) {
+          if (!vok[j]) continue;        // a spare slot scores 0
+          float kf[E];
+          widen(kr[u][j], kf, static_cast<const T*>(nullptr));
+#pragma unroll
+          for (int g = 0; g < GT; ++g) {
+            const float* qg = q_s + g * D + c0 + j * LPR * E;
+            float acc_s = s[u][g];
+#pragma unroll
+            for (int e = 0; e < E; e += 4) {
+              const float4 q4 = *reinterpret_cast<const float4*>(qg + e);
+              acc_s = fmaf(q4.x, kf[e], acc_s);
+              acc_s = fmaf(q4.y, kf[e + 1], acc_s);
+              acc_s = fmaf(q4.z, kf[e + 2], acc_s);
+              acc_s = fmaf(q4.w, kf[e + 3], acc_s);
+            }
+            s[u][g] = acc_s;
           }
-          s[u][g] = acc_s;
         }
       }
       // the row's score: a butterfly over the LPR lanes that share it
@@ -192,9 +236,12 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
           for (int g = 0; g < GT; ++g)
             s[u][g] += __shfl_xor_sync(FULL_MASK, s[u][g], off);
-      float vf[U][E];
+      float vf[U][VPL * E];
 #pragma unroll
-      for (int u = 0; u < U; ++u) widen(vr[u], vf[u], static_cast<const T*>(nullptr));
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int j = 0; j < VPL; ++j)
+          widen(vr[u][j], vf[u] + j * E, static_cast<const T*>(nullptr));
       // this lane's online softmax over its U rows, for every head
 #pragma unroll
       for (int g = 0; g < GT; ++g) {
@@ -205,13 +252,13 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float corr = exp2f(m[g] - mx);
         l[g] *= corr;
 #pragma unroll
-        for (int e = 0; e < E; ++e) acc[g][e] *= corr;
+        for (int e = 0; e < VPL * E; ++e) acc[g][e] *= corr;
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const float p = ok[u] ? exp2f(s[u][g] * scale_log2 - mx) : 0.f;
           l[g] += p;
 #pragma unroll
-          for (int e = 0; e < E; ++e) acc[g][e] = fmaf(p, vf[u][e], acc[g][e]);
+          for (int e = 0; e < VPL * E; ++e) acc[g][e] = fmaf(p, vf[u][e], acc[g][e]);
         }
         m[g] = mx;
       }
@@ -223,15 +270,17 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int off = LPR; off < 32; off <<= 1) {
 #pragma unroll
     for (int g = 0; g < GT; ++g) {
-      float a2[E];
+      float a2[VPL * E];
 #pragma unroll
-      for (int e = 0; e < E; ++e) a2[e] = __shfl_xor_sync(FULL_MASK, acc[g][e], off);
+      for (int e = 0; e < VPL * E; ++e) a2[e] = __shfl_xor_sync(FULL_MASK, acc[g][e], off);
       const float m2 = __shfl_xor_sync(FULL_MASK, m[g], off);
       const float l2 = __shfl_xor_sync(FULL_MASK, l[g], off);
-      combine<E>(m[g], l[g], acc[g], m2, l2, a2);
+      combine<VPL * E>(m[g], l[g], acc[g], m2, l2, a2);
     }
   }
-  // then the block's warps, through shared memory
+  // then the block's warps, through shared memory (after every warp's last
+  // read of the query heads, where the partials take their buffer)
+  if constexpr (ALIAS) __syncthreads();
   if (lane < LPR) {
 #pragma unroll
     for (int g = 0; g < GT; ++g) {
@@ -240,7 +289,11 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         l_s[warp * GT + g] = l[g];
       }
 #pragma unroll
-      for (int e = 0; e < E; ++e) a_s[(warp * GT + g) * D + c0 + e] = acc[g][e];
+      for (int j = 0; j < VPL; ++j)
+        if (vok[j])
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            a_s[(warp * GT + g) * D + c0 + j * LPR * E + e] = acc[g][j * E + e];
     }
   }
   __syncthreads();
@@ -360,7 +413,9 @@ cudaError_t dispatch_d(int D, int G, const void* q, const void* k,
     case 16: return dispatch_g<T, 16>(G, q, k, v, len, o, part, cnt, B, KVH, S, chunk, splits, st, s);
     case 32: return dispatch_g<T, 32>(G, q, k, v, len, o, part, cnt, B, KVH, S, chunk, splits, st, s);
     case 64: return dispatch_g<T, 64>(G, q, k, v, len, o, part, cnt, B, KVH, S, chunk, splits, st, s);
+    case 80: return dispatch_g<T, 80>(G, q, k, v, len, o, part, cnt, B, KVH, S, chunk, splits, st, s);
     case 128: return dispatch_g<T, 128>(G, q, k, v, len, o, part, cnt, B, KVH, S, chunk, splits, st, s);
+    case 160: return dispatch_g<T, 160>(G, q, k, v, len, o, part, cnt, B, KVH, S, chunk, splits, st, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 # --split-compile=0: nvcc runs its optimisation passes on as many threads
-# as the machine has (flash_decode has 40 instantiations, the longest
+# as the machine has (flash_decode has 60 instantiations, the longest
 # build; PERF.md has the build times); -Xptxas -v: each kernel's registers,
 # shared memory and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -120,7 +120,8 @@ def check(name: str, err: int, what: str) -> None:
 
 # dtype codes of the C entry points (csrc/common.cuh)
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
-HEAD_DIMS = (16, 32, 64, 128)
+# 80: zamba2-2.7b's shared attention block; 160: stablelm-12b
+HEAD_DIMS = (16, 32, 64, 80, 128, 160)
 # flash_attention's (q/k head dim, v head dim) pairs: one head dim for all
 # three, or MLA's 192 (nope 128 + rope 64) for q/k with 128 for v
 ATTENTION_DIMS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)

@@ -8,8 +8,9 @@ tensors in place of arrays. ``abstract_params()`` and ``input_specs(shape)``
 give parameters and inputs on the ``meta`` device, where nothing is
 allocated: the counterpart of the reference's ``jax.eval_shape`` and
 ``ShapeDtypeStruct``s, which the static analysis traces at full width.
-This port builds the ``dense``, ``vlm`` (early-fusion, token-stream) and
-``moe`` (MoE FFN, GQA or MLA attention) families; the others raise.
+This port builds the ``dense``, ``vlm`` (early-fusion, token-stream),
+``moe`` (MoE FFN, GQA or MLA attention) and ``hybrid`` (Mamba2 with a
+shared attention block) families; the others raise.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer
 
 
 @dataclass
@@ -70,14 +71,30 @@ def _build_lm(cfg: ArchConfig, device: torch.device) -> Model:
                  decode_step=decode_step)
 
 
+def _build_hybrid(cfg: ArchConfig, device: torch.device) -> Model:
+    def init_cache(params, batch, B, max_seq):
+        return hybrid.hybrid_states(cfg, B, max_seq, device)
+
+    def prefill(params, batch, cache):
+        return hybrid.hybrid_prefill(params, batch["tokens"], cfg, cache)
+
+    def decode_step(params, cache, tokens, lengths):
+        return hybrid.hybrid_decode_step(params, cache, tokens, lengths, cfg)
+
+    return Model(cfg=cfg, device=device, family=cfg.family,
+                 init_on=lambda gen, dev: hybrid.hybrid_init(gen, cfg, dev),
+                 init_cache=init_cache, prefill=prefill,
+                 decode_step=decode_step)
+
+
 # families of later slices, and the ROADMAP item that ports each
 LATER_SLICES = {
-    "hybrid": "Mamba2 and hybrid (ROADMAP queue 1, item 6)",
     "ssm": "RWKV6 (ROADMAP queue 1, item 7)",
     "audio": "the encoder-decoder (ROADMAP queue 1, item 8)",
 }
 
-FAMILIES = {"dense": _build_lm, "vlm": _build_lm, "moe": _build_lm}
+FAMILIES = {"dense": _build_lm, "vlm": _build_lm, "moe": _build_lm,
+            "hybrid": _build_hybrid}
 
 
 def build_model(cfg: ArchConfig, device="cuda") -> Model:

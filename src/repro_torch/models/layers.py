@@ -16,7 +16,7 @@ from __future__ import annotations
 import itertools
 import math
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -45,10 +45,20 @@ class Draw:
     """One parameter: ``shape``, and N(0, std^2) drawn in fp32 and rounded
     to the parameter's dtype, or the constant ``value`` where ``std`` is
     None. A draw of more than two dims is made one trailing matrix at a
-    time (an expert's at a time), so the fp32 draw holds one matrix."""
+    time (an expert's at a time), so the fp32 draw holds one matrix.
+
+    Two more draws, of a vector, for Mamba2's per-head parameters:
+    ``uniform=(lo, hi)`` draws U(lo, hi) in fp32, ``linspace=(lo, hi)``
+    takes ``torch.linspace(lo, hi, n)``; either then goes through ``then``
+    (the reference's transform, fp32 to fp32) before it is stored.
+    ``dtype`` is the parameter's own dtype, None for the tree's."""
     shape: Tuple[int, ...]
     std: Optional[float] = None
     value: float = 0.0
+    dtype: Optional[torch.dtype] = None
+    uniform: Optional[Tuple[float, float]] = None
+    linspace: Optional[Tuple[float, float]] = None
+    then: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
 
 def _draws(tree, path=()):
@@ -63,6 +73,15 @@ def _draws(tree, path=()):
 def _fill(t: torch.Tensor, d: Draw, gen) -> None:
     if t.device.type == "meta":
         return
+    if d.uniform is not None or d.linspace is not None:
+        f32 = dict(dtype=torch.float32, device=t.device)
+        if d.uniform is not None:
+            lo, hi = d.uniform
+            v = torch.rand(d.shape, generator=gen, **f32) * (hi - lo) + lo
+        else:
+            v = torch.linspace(*d.linspace, d.shape[0], **f32)
+        t.copy_(d.then(v) if d.then is not None else v)
+        return
     if d.std is None:
         t.fill_(d.value)
         return
@@ -73,13 +92,15 @@ def _fill(t: torch.Tensor, d: Draw, gen) -> None:
 
 
 def materialize(spec, gen, dtype, device, layers: int = 0):
-    """Tensors for a tree of ``Draw``s, in ``dtype`` on ``device``, filled in tree order from ``gen`` (on ``device``; None on
+    """Tensors for a tree of ``Draw``s, in ``dtype`` (or a ``Draw``'s own)
+    on ``device``, filled in tree order from ``gen`` (on ``device``; None on
     the meta device, where nothing is allocated or drawn). With
     ``layers`` = L every leaf is ``[L, *shape]``, filled a layer at a
     time: all of layer 0, then layer 1, ..."""
     leaves = list(_draws(spec))
     out = [torch.empty(((layers,) if layers else ()) + tuple(d.shape),
-                       dtype=dtype, device=device) for _, d in leaves]
+                       dtype=d.dtype or dtype, device=device)
+           for _, d in leaves]
     for i in range(max(layers, 1)):
         for t, (_, d) in zip(out, leaves):
             _fill(t[i] if layers else t, d, gen)

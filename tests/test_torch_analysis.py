@@ -32,7 +32,7 @@ from repro_torch.kernels import library, ops
 pallas_keystream_body = _keystream.__wrapped__
 PORTED = ["qwen1.5-0.5b", "codeqwen1.5-7b", "stablelm-12b",
           "starcoder2-15b", "chameleon-34b", "grok-1-314b",
-          "deepseek-v3-671b"]
+          "deepseek-v3-671b", "zamba2-2.7b"]
 
 
 def _u32_zeros(n, device="cpu"):
@@ -350,7 +350,7 @@ def _digest(path) -> str:
 def test_main_on_cpu_writes_the_port_artifact(tmp_path, monkeypatch):
     """The entry point end to end on the CPU, with the model timelines at
     reduced configs to keep the test short (full width: the next test for
-    qwen1.5-0.5b, chip_smoke.py phase 6 for all seven)."""
+    qwen1.5-0.5b, chip_smoke.py phase 6 for all eight)."""
     from repro_torch.analysis import derived
     full = calibrate.model_timelines
     monkeypatch.setattr(calibrate, "model_timelines",
@@ -362,7 +362,7 @@ def test_main_on_cpu_writes_the_port_artifact(tmp_path, monkeypatch):
     data = json.loads(out.read_text())
     assert sorted(data["workloads"]) == sorted(PORTED)
     assert sorted(data["skipped"]) == sorted(
-        ["zamba2-2.7b", "whisper-large-v3", "rwkv6-3b"])
+        ["whisper-large-v3", "rwkv6-3b"])
     assert "ROADMAP" in data["skipped"]["rwkv6-3b"]
     for arch, w in data["workloads"].items():
         assert "prefill" in w["tags"], arch

@@ -147,6 +147,47 @@ def test_a_later_attempt_frees_the_earlier_one_on_its_peers(models):
     assert not b.state and not b.live
 
 
+def test_hybrid_cluster_under_crash_conserves_and_matches_reference():
+    """zamba2's reduced config through the cluster under the crash plan:
+    exact conservation, no oracle violation, every completed request's
+    tokens equal the reference's, and no executor keeps a state tree
+    (Mamba2 states and shared-block KV caches) after the run."""
+    jmodel, jparams, tmodel, tparams = reference_and_port("zamba2-2.7b")
+    argv = [*CRASH[:CRASH.index("--arch")], "--arch", "zamba2-2.7b",
+            *CRASH[CRASH.index("--arch") + 2:]]
+    args = serve.build_parser().parse_args(argv)
+    m, executors, oracle = serve.run_cluster(args, tmodel.cfg, tmodel,
+                                             tparams)
+    s = m.summary()
+    assert oracle.n_violations == 0, oracle.violations[:5]
+    assert s["injected"] == 24 == s["completed"] + s["shed_total"] \
+        + s["expired_total"]
+    assert s["leftover"] == 0
+    assert s["faults_injected"] >= 1 and s["shard_recoveries"] >= 1
+    rids = completed_rids(executors)
+    assert len(rids) == s["completed"]
+    assert_tokens_match_reference(jmodel, jparams, executors, rids, 4)
+    assert all(not ex.state and not ex.live for ex in executors.values())
+
+
+def test_a_later_attempt_frees_a_hybrid_state_on_its_peers():
+    """The drop of an earlier attempt works on the hybrid's
+    ``{"mamba", "kv"}`` state tree as on a ``{"k", "v"}`` cache."""
+    _, _, tmodel, tparams = reference_and_port("zamba2-2.7b")
+    P, N = 16, 4
+    peers = []
+    a, b = (serve.RealModelExecutor(tmodel, tparams, tmodel.cfg.vocab, P,
+                                    P + N, peers=peers) for _ in range(2))
+    req = Request(rid=5, arrive_ms=0.0, prompt_len=P, max_new=N)
+    a.prefill(req, P, "prefill", 1)
+    cache = a.state[5][0]
+    assert set(cache) == {"mamba", "kv"}
+    req.attempts, req.prefilled, req.generated = 1, 0, 0
+    b.prefill(req, P, "prefill", 1)
+    assert 5 not in a.state and 5 not in a.live
+    assert set(b.state[5][0]) == {"mamba", "kv"}
+
+
 def test_workload_in_engine_mode_matches_reference(models):
     jmodel, jparams, tmodel, tparams = models
     args = serve.build_parser().parse_args(

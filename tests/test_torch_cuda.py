@@ -190,6 +190,43 @@ def test_cuda_attention_kernels_grok_serve_shapes(dtype):
                                    rtol=tol, atol=tol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [80, 160])
+@pytest.mark.parametrize("G", [1, 2, 4, 16])
+def test_cuda_attention_kernels_head_dims_80_160(dtype, D, G):
+    """Both kernels at the head dims whose rows are no power of two of
+    16-byte vectors: 80 (zamba2-2.7b's shared block, G 1) and 160
+    (stablelm-12b, G 4), with one and two warpgroups a prefill block and
+    decode groups up to 16 (D 160 at G 16 reuses the query heads' shared
+    memory for the partials). Ragged S, the model's transpose and permute
+    views; decode over a cache the split planner cuts, at lengths inside,
+    at and past a chunk's edge."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(D + G)
+    dt, B, KVH = TDT[dtype], 2, 2
+    for S in (33, 200):
+        q, k, v = (torch.randn(B, S, h, D, generator=gen, device="cuda")
+                   .to(dt).transpose(1, 2) for h in (KVH * G, KVH, KVH))
+        tol = TOLS["flash_attention"][dtype]
+        for causal in (True, False):
+            torch.testing.assert_close(
+                ops.flash_attention(q, k, v, causal=causal).float(),
+                ref.attention_ref(q, k, v, causal=causal).float(),
+                rtol=tol, atol=tol)
+    kc, vc = (torch.randn(B, 528, KVH, D, generator=gen, device="cuda")
+              .to(dt).permute(0, 2, 1, 3) for _ in range(2))
+    q1 = torch.randn(B, KVH * G, D, generator=gen, device="cuda").to(dt)
+    tol = TOLS["flash_decode"][dtype]
+    for lengths in ((1, 64), (512, 513), (527, 0)):
+        args = (q1, kc, vc, torch.tensor(lengths, dtype=torch.int32,
+                                         device="cuda"))
+        torch.testing.assert_close(ops.flash_decode(*args).float(),
+                                   ref.decode_attention_split_ref(
+                                       *args, chunk=64).float(),
+                                   rtol=tol, atol=tol)
+
+
 def _moe_configs():
     """1-layer MoE configs at reduced width: grok-1's (GQA, head dim 16)
     and deepseek-v3's with MLA's published head dims (nope 128, rope 64,
@@ -207,16 +244,12 @@ def _moe_configs():
     return {"grok-1-314b": grok, "deepseek-v3-671b": ds}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["grok-1-314b", "deepseek-v3-671b"])
-def test_cuda_moe_model_matches_cpu(arch):
-    """A 1-layer reduced-width MoE model in fp32 on the card (the kernels,
-    ``index_add_`` in the card's order) against the same weights on the
-    CPU (the plain versions): prefill and 4 greedy steps, logits at 1e-4
-    and equal tokens."""
-    _needs_card()
+def _greedy_on_card_and_cpu(cfg):
+    """One set of weights (from the CPU model's init) in fp32 on the card
+    (the kernels) and on the CPU (the plain versions): a 40-token prefill
+    of 2 sequences and 4 greedy steps each. Returns (card logits, CPU
+    logits, the card run's kernel launches)."""
     from repro_torch.models.api import build_model
-    cfg = _moe_configs()[arch]
     cpu, card = build_model(cfg, "cpu"), build_model(cfg, "cuda")
     params = cpu.init(torch.Generator().manual_seed(0))
 
@@ -224,7 +257,6 @@ def test_cuda_moe_model_matches_cpu(arch):
         return {k: to(v, dev) if isinstance(v, dict) else v.to(dev)
                 for k, v in tree.items()}
 
-    on_card = to(params, "cuda")
     toks = torch.randint(0, cfg.vocab, (2, 40),
                          generator=torch.Generator().manual_seed(1))
 
@@ -241,8 +273,43 @@ def test_cuda_moe_model_matches_cpu(arch):
         return torch.stack(out).cpu()
 
     ops.reset_launch_counts()
-    got = greedy(card, on_card, "cuda")
-    assert ops.launch_counts()["flash_attention"] == 1
-    want = greedy(cpu, params, "cpu")
+    got = greedy(card, to(params, "cuda"), "cuda")
+    launches = ops.launch_counts()
+    return got, greedy(cpu, params, "cpu"), launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["grok-1-314b", "deepseek-v3-671b"])
+def test_cuda_moe_model_matches_cpu(arch):
+    """A 1-layer reduced-width MoE model in fp32 on the card (the kernels,
+    ``index_add_`` in the card's order) against the same weights on the
+    CPU (the plain versions): prefill and 4 greedy steps, logits at 1e-4
+    and equal tokens."""
+    _needs_card()
+    got, want, launches = _greedy_on_card_and_cpu(_moe_configs()[arch])
+    assert launches["flash_attention"] == 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.cuda
+def test_cuda_hybrid_model_matches_cpu():
+    """zamba2's reduced config with the shared block at the published head
+    dim 80 (2 heads), fp32 on the card (the kernels, the SSD scan's
+    products on the card) against the same weights on the CPU (the plain
+    versions): a 40-token prefill (the chunk of 16 shrunk to 10) and 4
+    greedy steps, logits at 1e-4 and equal tokens; one
+    ``flash_attention`` launch a group in prefill, one ``flash_decode`` a
+    group a step."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    _needs_card()
+    cfg = dataclasses.replace(get_arch("zamba2-2.7b").reduced(), n_heads=2,
+                              kv_heads=2, head_dim=80)
+    groups = cfg.n_layers // cfg.hybrid.shared_attn_every
+    got, want, launches = _greedy_on_card_and_cpu(cfg)
+    assert launches["flash_attention"] == groups
+    assert launches["flash_decode"] == 4 * groups
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert torch.equal(got.argmax(-1), want.argmax(-1))

@@ -55,7 +55,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "sched.sweep", "core.task", "core.runqueue", "core.license",
         "core.muqss", "core.simulator", "core.workloads",
         "core.perfcounters", "core.experiments", "core.static_analysis",
-        "analysis.lint", "examples.identify_hot_code")} <= \
+        "analysis.lint", "examples.identify_hot_code", "models.mamba2",
+        "models.hybrid")} <= \
         set(res["modules"])
 
 

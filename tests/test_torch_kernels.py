@@ -157,6 +157,53 @@ def test_flash_decode_plain_cache_view_ragged(G):
     _close(got, want, 2e-5)
 
 
+# ------------------------------------------------ head dims 80 and 160
+
+
+@pytest.mark.parametrize("D,G", [(80, 1), (80, 2), (160, 4)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_plain_at_head_dims_80_and_160(D, G, dtype):
+    """Both plain versions at zamba2-2.7b's shared-block head dim (80, G 1)
+    and stablelm-12b's (160, G 4), against the reference's oracles and
+    the Pallas kernels in interpret mode: causal and full prefill, and
+    decode at ragged lengths; scores scaled by 1/sqrt(D)."""
+    KVH, S = 2, 96
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(D + G, 1, KVH * G, KVH, S, D, dtype)
+    tol = TOLS["flash_attention"][dtype]
+    for causal in (True, False):
+        got = ops.flash_attention(tq, tk, tv, causal=causal)
+        assert got.shape == (1, KVH * G, S, D)
+        _close(got, jref.attention_ref(jq, jk, jv, causal=causal), tol)
+        _close(got, pallas_attention(jq, jk, jv, causal=causal, block_q=32,
+                                     block_k=32), tol)
+    (jq, tq), (jk, tk), (jv, tv) = _decode_inputs(D * G, 3, KVH * G, KVH,
+                                                  S, D, dtype)
+    lengths = np.array([1, 50, 96], np.int32)
+    got = ops.flash_decode(tq, tk, tv, torch.from_numpy(lengths))
+    tol = TOLS["flash_decode"][dtype]
+    jl = jnp.asarray(lengths)
+    _close(got, jref.decode_attention_ref(jq, jk, jv, jl), tol)
+    _close(got, pallas_decode(jq, jk, jv, jl, block_k=32), tol)
+
+
+@pytest.mark.parametrize("D", [80, 160])
+def test_kernel_wrappers_take_head_dims_80_and_160(D):
+    """Both CUDA wrappers accept 80 and 160 as head dims: a CPU tensor
+    passes the head-dim check and is refused for its device; 96 is still
+    outside ``flash_attention``'s domain (``flash_decode`` checks the
+    device first)."""
+    from repro_torch.kernels import build
+    assert D in build.HEAD_DIMS and (D, D) in build.ATTENTION_DIMS
+    q = torch.zeros((1, 2, 8, D))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fd.flash_decode(q[:, :, 0], q, q, torch.full((1,), 8))
+    q96 = torch.zeros((1, 2, 8, 96))
+    with pytest.raises(ValueError, match=r"head dims \(q/k 96, v 96\)"):
+        fa.flash_attention(q96, q96, q96)
+
+
 # ------------------------------------------------------------- dispatch
 
 

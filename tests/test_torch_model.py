@@ -1,5 +1,5 @@
-"""The port's LM (dense, MoE with GQA or MLA) against the JAX reference
-model.
+"""The port's LM (dense, MoE with GQA or MLA) and the hybrid (Mamba2 with
+a shared attention block) against the JAX reference model.
 
 Weights come from the reference's own ``init`` and are carried across by
 ``repro_torch.bridge.params_from_jax``; prefill logits and 4 greedy decode
@@ -14,10 +14,11 @@ import torch
 
 from repro.configs import get_arch as jget_arch
 from repro.models.api import build_model as jbuild_model
+from repro.models import hybrid as jhybrid
 from repro.models import transformer as jtransformer
 from repro_torch.bridge import flatten, params_from_jax
 from repro_torch.configs import get_arch
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer
 from repro_torch.models.api import build_model
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -85,7 +86,21 @@ CASES = {
     "qwen-gqa-g2": ("qwen1.5-0.5b", {"kv_heads": 2}),
     "grok-moe-gqa": ("grok-1-314b", {}),
     "deepseek-moe-mla": ("deepseek-v3-671b", {}),
+    "zamba2-hybrid": ("zamba2-2.7b", {}),
+    "stablelm-layernorm-gqa": ("stablelm-12b", {}),
+    "starcoder2-bias-gelu": ("starcoder2-15b", {}),
+    "codeqwen-bias-theta": ("codeqwen1.5-7b", {}),
 }
+
+
+def full_forwards(cfg):
+    """(reference, port) full-sequence forwards of ``cfg``'s family, each
+    (params, tokens, cfg) -> logits [B,S,V]."""
+    if cfg.family == "hybrid":
+        return (lambda p, t, c: jhybrid.hybrid_forward(p, t, c)[0],
+                hybrid.hybrid_forward)
+    return (lambda p, t, c: jtransformer.lm_forward(p, t, c)[0],
+            transformer.lm_forward)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -103,20 +118,20 @@ def test_prefill_and_greedy_decode_match_reference(case):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_full_forward_matches_reference(case):
-    """lm_forward against the reference's chunked-attention forward."""
+    """lm_forward (hybrid_forward for the hybrid) against the reference's
+    chunked-attention forward."""
     arch, over = CASES[case]
     jmodel, jparams, tmodel, tparams = reference_and_port(arch, **over)
     toks = np.random.default_rng(8).integers(0, tmodel.cfg.vocab, (2, 40))
-    want, _ = jtransformer.lm_forward(jparams, jnp.asarray(toks, jnp.int32),
-                                      jmodel.cfg)
-    got = transformer.lm_forward(tparams, torch.from_numpy(toks).long(),
-                                 tmodel.cfg)
+    jforward, forward = full_forwards(tmodel.cfg)
+    want = jforward(jparams, jnp.asarray(toks, jnp.int32), jmodel.cfg)
+    got = forward(tparams, torch.from_numpy(toks).long(), tmodel.cfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "chameleon-34b",
                                   "starcoder2-15b", "grok-1-314b",
-                                  "deepseek-v3-671b"])
+                                  "deepseek-v3-671b", "zamba2-2.7b"])
 def test_bridge_is_one_to_one(arch):
     """Every reference key lands in the port under the same name and
     shape, and the port's own init has exactly the same keys."""
@@ -143,7 +158,6 @@ def test_bf16_bridge_keeps_values():
 
 
 @pytest.mark.parametrize("arch,slice_", [
-    ("zamba2-2.7b", "Mamba2"),
     ("rwkv6-3b", "RWKV6"), ("whisper-large-v3", "encoder-decoder")])
 def test_unported_families_raise(arch, slice_):
     with pytest.raises(NotImplementedError, match=slice_):

@@ -82,6 +82,38 @@ def test_moe_engine_tokens_match_reference_greedy(arch):
         assert ex.generated(rid) == want[0].tolist()
 
 
+@pytest.mark.parametrize("mode", ["engine", "loop"])
+def test_hybrid_serve_cli_completes(mode):
+    """``--arch zamba2-2.7b --reduced --device cpu`` serves in both modes;
+    the heavy tag comes from the copied ``derived.json``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    argv = [*CLI[:CLI.index("--arch")], "--arch", "zamba2-2.7b",
+            *CLI[CLI.index("--arch") + 2:], "--mode", mode]
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *argv],
+        capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "[serve] 4/4 requests" in out.stdout
+    assert "heavy tags (derived.json): ['prefill']" in out.stdout
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "stablelm-12b"])
+def test_engine_tokens_match_reference_greedy_new_archs(arch):
+    """The engine's greedy tokens for the hybrid and for stablelm-12b
+    (LayerNorm, GQA 32/8) equal the reference model's on the executor's
+    prompts and bridged weights."""
+    jmodel, jparams, tmodel, tparams = reference_and_port(arch)
+    argv = [*CLI[:CLI.index("--arch")], "--arch", arch,
+            *CLI[CLI.index("--arch") + 2:]]
+    args = serve.build_parser().parse_args(argv)
+    m, ex = serve.run_engine(args, tmodel.cfg, tmodel, tparams)
+    assert m.completed == 4
+    for rid in range(4):
+        _, want = reference_greedy(jmodel, jparams,
+                                   ex.prompts[rid][None, :], 3)
+        assert ex.generated(rid) == want[0].tolist()
+
+
 def test_loop_tokens_match_reference_greedy():
     jmodel, jparams, tmodel, tparams = reference_and_port("qwen1.5-0.5b",
                                                           kv_heads=2)
