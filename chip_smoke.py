@@ -24,7 +24,11 @@ Phases, each ending in one line:
      prefill, decode over a 576-position cache; stablelm-12b, B1 H32 KVH8
      D160: S512, a 528-position cache; decode at the prompt's length, the
      first, 16th, middle and last steps'; the bf16 prefill and first
-     decode step timed),
+     decode step timed), at phase 11's whisper-large-v3 shapes (B1 H20
+     KVH20 D64: cross-attention at Sq 64, Skv 1500 and the encoder at
+     S1500, both not causal, and ``flash_decode`` over all 1500 frames,
+     timed in fp32 and bf16; the decoder's causal prefill and its
+     self-attention decode),
      with one PyTorch
      library call's time (``scaled_dot_product_attention``, a yardstick
      the port never calls). ``chacha20`` bit-exact (0 mismatched words) on
@@ -54,7 +58,7 @@ Phases, each ending in one line:
      kernels' plain versions swapped in, on the card; and the served bf16
      ``unembed`` against fp32 sums, to show its logits stay fp32;
   6. calibration: ``repro_torch.analysis.calibrate.main`` on the card at
-     the full published configs of the eight ported archs, with the launch
+     the full published configs of all ten archs, with the launch
      counters reset just before and read just after: all three kernels
      must launch, each kernel and every arch's ``prefill`` must be tagged
      heavy as in the reference's ``derived.json`` (``decode_step``'s tags
@@ -74,7 +78,7 @@ Phases, each ending in one line:
      8 requests of the ``multi_tenant`` workload in engine mode must all
      complete;
   8. the intermittency lint (``repro_torch.analysis.lint``) on the card,
-     counters reset just before: all three kernels must launch, and the
+     over all ten archs, counters reset just before: all three kernels must launch, and the
      ranked findings must equal the committed ``lint_baseline_cuda.json``
      (its three untagged ``decode_step`` findings included, which
      ``--check-baseline`` fails on by design);
@@ -102,6 +106,23 @@ Phases, each ending in one line:
      (chunk 128 and 1: iterations, kernels, time) and the share of a
      prefill and a decode step in the SSD core; then each in fp32 at 6
      and 2 layers through the end-to-end check of phase 5;
+ 11. rwkv6-3b and whisper-large-v3 whole at their published widths in
+     bf16. rwkv6-3b (32 layers, attention-free: no kernel on its path)
+     served through ``repro_torch.launch.serve.main`` in engine mode (4
+     requests, 512-token prompts, 16 new tokens, batch 2), TTFT/ITL, the
+     weights' and the peak memory, a profiled prefill and decode steps,
+     and finite logits at every position of a 512-token prompt (its chunk
+     of 128 run as blocks of 32); then in fp32 at 2 layers, the chunked
+     prefill against the recurrence fed one token a call. whisper-large-v3
+     (32 encoder and 32 decoder layers) through its Model API, which the
+     serving executor cannot drive (it passes no frames): ``init_cache``
+     over seeded frames [1, 1500, 1280] (the encoder) and ``prefill`` of
+     a 64-token transcript, each timed, the self-KV filled step by step
+     from length 0 and 16 greedy decode steps (ITL), the launch counters
+     reset just before and read just after (both kernels must launch),
+     a profiled prefill and decode steps; then at 2 + 2 layers in fp32,
+     the kernels against their plain versions end to end and the last
+     decode step against the teacher-forced decoder;
 then the ``kernels`` JSON line, the card line, and the result line.
 
 Any failed phase exits non-zero. Nothing runs on the CPU in place of the
@@ -147,6 +168,15 @@ WIDE_E2E_DEPTH = {"zamba2-2.7b": 6, "stablelm-12b": 2}
 # the prompts whose SSD chunk loop phase 10 counts: the served one (chunks
 # of 128) and a prime one, which the chunk shrinks to divide (Q = 1)
 SSD_PROMPTS = (512, 509)
+# phase 11: rwkv6-3b whole (32 layers) served at its published width in
+# bf16, and its fp32 check against the recurrence at 2 layers; whisper-
+# large-v3 whole (32 + 32 layers) through its Model API: a 64-token
+# transcript (calibration's audio traffic: transcripts uniform over
+# 48-160 tokens) and 16 greedy steps, and its fp32 checks at 2 + 2 layers
+RWKV_SERVE = dict(requests=4, prompt=512, max_new=16, batch=2)
+RWKV_E2E_DEPTH = 2
+WHISPER_RUN = dict(transcript=64, max_new=16)
+WHISPER_E2E_DEPTH = 2
 # decode timings rotate over copies of their inputs that together exceed
 # the H100's 50 MB L2 cache
 ROTATE_BYTES = 75e6
@@ -277,25 +307,28 @@ def card_line() -> str:
 
 
 def prefill_case(B, H, KVH, S, D, dtype, causal, gen, contiguous=False,
-                 Dv=None):
+                 Dv=None, Skv=None):
     """q/k/v as transpose views of [B,S,*,D] tensors, as the model passes
     them, or ``contiguous`` [B,*,S,D] tensors, as calibration passes
-    them. With a value head dim ``Dv`` of its own (MLA), v is the slice
-    of a [B,S,KVH,D'+Dv] tensor that MLA's decompression gives (D' = 128,
-    MLA's nope dim). Returns (args, kwargs, bytes, flops)."""
+    them; k and v of ``Skv`` positions where given (cross-attention, not
+    causal), else S. With a value head dim ``Dv`` of its own (MLA), v is
+    the slice of a [B,S,KVH,D'+Dv] tensor that MLA's decompression gives
+    (D' = 128, MLA's nope dim). Returns (args, kwargs, bytes, flops)."""
     import torch
+    Skv = Skv or S
 
-    def make(heads, d=D):
-        t = torch.randn(B, S, heads, d, generator=gen, device="cuda")
+    def make(heads, d=D, length=S):
+        t = torch.randn(B, length, heads, d, generator=gen, device="cuda")
         t = t.to(dtype).transpose(1, 2)
         return t.contiguous() if contiguous else t
 
-    q, k = make(H), make(KVH)
-    v = make(KVH) if Dv is None else make(KVH, 128 + Dv)[..., 128:]
+    q, k = make(H), make(KVH, length=Skv)
+    v = make(KVH, length=Skv) if Dv is None \
+        else make(KVH, 128 + Dv, Skv)[..., 128:]
     Dv = Dv or D
     item = q.element_size()
-    nbytes = item * (B * H * S * (D + Dv) + B * KVH * S * (D + Dv))
-    pairs = S * (S + 1) // 2 if causal else S * S
+    nbytes = item * (B * H * S * (D + Dv) + B * KVH * Skv * (D + Dv))
+    pairs = S * (S + 1) // 2 if causal else S * Skv
     flops = 2 * B * H * (D + Dv) * pairs
     return (q, k, v), {"causal": causal}, nbytes, flops
 
@@ -628,6 +661,8 @@ def calibration_shape_checks(gen):
         False))
     for arch in cal.DIFFERENTIAL_ARCHS:
         cfg = get_arch(arch).reduced()
+        if cfg.attention == "none":     # rwkv6-3b: no kernel on its path
+            continue
         H, KVH, D = cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim
         dname = cfg.compute_dtype
         checks["flash_attention"].append(check_kernel(
@@ -697,6 +732,42 @@ def serve_shape_checks(runs, dname, dtype, gen, timed=False):
     return checks
 
 
+def whisper_shape_checks(dname, dtype, gen):
+    """The attention kernels at whisper-large-v3's shapes (heads from the
+    published config, phase 11's transcript): cross-attention (Sq = the
+    transcript, Skv = the frames) and the encoder (S = the frames), both
+    not causal, and ``flash_decode`` over all the frames, timed; the
+    decoder's causal prefill and its self-attention decode over the
+    transcript's cache, untimed."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch("whisper-large-v3")
+    H, KVH, D = cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim
+    T, P = cfg.enc_dec.n_frames, WHISPER_RUN["transcript"]
+    S = P + WHISPER_RUN["max_new"]
+    fa = [check_kernel("flash_attention",
+                       prefill_case(1, H, KVH, P, D, dtype, False, gen,
+                                    Skv=T),
+                       f"whisper cross B1 H{H} KVH{KVH} Sq{P} Skv{T} D{D} "
+                       "full", dname, True),
+          check_kernel("flash_attention",
+                       prefill_case(1, H, KVH, T, D, dtype, False, gen),
+                       f"whisper encoder B1 H{H} KVH{KVH} S{T} D{D} full",
+                       dname, True),
+          check_kernel("flash_attention",
+                       prefill_case(1, H, KVH, P, D, dtype, True, gen),
+                       f"whisper decoder B1 H{H} KVH{KVH} S{P} D{D} causal",
+                       dname, False)]
+    fd = [check_kernel("flash_decode",
+                       decode_case(1, H, KVH, T, D, dtype, [T], gen),
+                       f"whisper cross B1 H{H} KVH{KVH} S{T} D{D} len{T}",
+                       dname, True)]
+    fd += [check_kernel("flash_decode",
+                        decode_case(1, H, KVH, S, D, dtype, [n], gen),
+                        f"whisper self B1 H{H} KVH{KVH} S{S} D{D} len{n}",
+                        dname, False) for n in (1, P + 1, S)]
+    return {"flash_attention": fa, "flash_decode": fd}
+
+
 def kernel_phase():
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -737,6 +808,8 @@ def kernel_phase():
                          dname, timed),
         ]
         results["flash_decode"] += cluster_decode_checks(dname, dtype, gen)
+        for name, checks in whisper_shape_checks(dname, dtype, gen).items():
+            results[name] += checks
         for runs, timed in (({a: MOE_SERVE for a in MOE_DEPTH}, False),
                             (WIDE_SERVE, dname == "bfloat16")):
             for name, checks in serve_shape_checks(runs, dname, dtype, gen,
@@ -780,17 +853,21 @@ def serve_phase():
     return m, ex, launches
 
 
-def profile_phase(model, params, steps: int = 8, top: int = 5):
-    """Where a serving step's time goes: one prefill of the serve prompt
-    and ``steps`` decode steps of one request, traced with
-    ``torch.profiler``. Prints wall time, device busy time (union of the
-    kernels' intervals), the idle share and the ``top`` kernels."""
+def profile_phase(model, params, steps: int = 8, top: int = 5, extra=None,
+                  prompt=None):
+    """Where a serving step's time goes: one prefill of ``prompt`` tokens
+    (the serve prompt by default; ``extra`` adds inputs such as the
+    encoder-decoder's frames, whose ``init_cache`` runs the encoder inside
+    the traced prefill) and ``steps`` decode steps of one request, traced
+    with ``torch.profiler``. Prints wall time, device busy time (union of
+    the kernels' intervals), the idle share and the ``top`` kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    P, dev = SERVE["prompt"], model.device
+    P, dev = prompt or SERVE["prompt"], model.device
     toks = torch.randint(0, model.cfg.vocab, (1, P), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(3))
+    batch = {"tokens": toks, **(extra or {})}
 
     def sync():
         if dev.type == "cuda":
@@ -820,8 +897,8 @@ def profile_phase(model, params, steps: int = 8, top: int = 5):
     state = {}
 
     def prefill():
-        cache = model.init_cache(params, None, 1, P + steps + 1)
-        logits, state["cache"] = model.prefill(params, {"tokens": toks}, cache)
+        cache = model.init_cache(params, batch, 1, P + steps + 1)
+        logits, state["cache"] = model.prefill(params, batch, cache)
         state["tok"] = logits.argmax(-1)[:, None]
 
     def decode():
@@ -973,8 +1050,8 @@ def unembed_phase(rows: int = 4, tol: float = 1e-3):
 def calibration_phase():
     """``python -m repro_torch.analysis.calibrate`` on the card, through its
     ``main``: kernel timelines and differentials launch the three kernels,
-    the five ported archs are analysed at their published configs on the
-    meta device. Returns the launches of that run."""
+    every arch is analysed at its published config on the meta device.
+    Returns the launches of that run."""
     import hashlib
 
     from repro_torch.analysis import derived
@@ -1375,6 +1452,281 @@ def ssd_phase(model, params):
         "synchronisations, which the step's time includes")
 
 
+def weights(params) -> tuple:
+    """(parameters in billions, their GB) of a parameter dict."""
+    from repro_torch.bridge import flatten
+    ts = flatten(params).values()
+    return (sum(t.numel() for t in ts) / 1e9,
+            sum(t.numel() * t.element_size() for t in ts) / 1e9)
+
+
+def rwkv_phase():
+    """rwkv6-3b whole at its published width in bf16, served through
+    ``serve.main`` in engine mode with the launch counters reset just
+    before and read just after (attention-free: no kernel launches), its
+    memory, finite logits at every position of a served-length prompt and
+    a profiled prefill and decode steps; then the fp32 check against the
+    recurrence (``rwkv_recurrence_check``). Returns the serving
+    launches."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import rwkv6
+    arch, run = "rwkv6-3b", RWKV_SERVE
+    cfg = get_arch(arch)
+    free_cuda()
+    ops.reset_launch_counts()
+    m, ex = serve.main(["--arch", arch] + serve_argv("engine", run)[2:])
+    launches = ops.launch_counts()
+    s = m.summary()
+    n, N, P = run["requests"], run["max_new"], run["prompt"]
+    n_b, gb = weights(ex.params)
+    say(f"  {arch} serving (serve.main, engine): {m.completed}/{n} "
+        f"requests, {cfg.n_layers} of {cfg.n_layers} layers at d "
+        f"{cfg.d_model}, {n_b:.2f}B params, ttft "
+        f"p50/p99 {s['ttft_p50_ms']:.3f}/{s['ttft_p99_ms']:.3f} ms, itl "
+        f"p50/p99 {s['itl_p50_ms']:.3f}/{s['itl_p99_ms']:.3f} ms, launches "
+        f"{launches}, weights {gb:.2f} GB, max memory "
+        f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    require(m.completed == n, f"{arch}: {m.completed}/{n} completed")
+    for rid in range(n):
+        toks = ex.generated(rid)
+        require(len(toks) == N and all(0 <= t < cfg.vocab for t in toks),
+                f"{arch} request {rid}: tokens {toks[:8]}...")
+    Q = rwkv6._chunk_len(P, cfg.rwkv.chunk)
+    block = rwkv6.wkv_block_len(P, cfg.rwkv.chunk)
+    toks = torch.randint(0, cfg.vocab, (1, P), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(5))
+    logits, states = rwkv6.rwkv6_lm_apply(ex.params, toks, cfg)
+    finite = bool(torch.isfinite(logits).all()) and all(
+        bool(torch.isfinite(t).all()) for t in states.values())
+    say(f"  {arch} at prompt {P}: chunk {Q} run as {P // block} blocks of "
+        f"{block}; logits at all {P} positions and the states finite: "
+        f"{finite}, max |logit| {logits.abs().max().item():.4g}")
+    require(finite, f"{arch}: non-finite logits at prompt {P}")
+    say(f"  {arch} where a serving step's time goes (torch.profiler):")
+    profile_phase(ex.model, ex.params, steps=4, top=8)
+    del m, ex, logits, states
+    free_cuda()
+    rwkv_recurrence_check()
+    return launches
+
+
+def rwkv_recurrence_check(steps: int = 8):
+    """rwkv6-3b at its published width in fp32 and ``RWKV_E2E_DEPTH``
+    layers: the chunked prefill of 2 x 512 tokens against the same
+    recurrence fed one token a call (the decode path), logits at every
+    position within 1e-3 x max(1, max |logit|), and ``steps`` greedy
+    tokens from each path's final states equal."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import rwkv6
+    from repro_torch.models.api import build_model
+    cfg = dataclasses.replace(get_arch("rwkv6-3b"), n_layers=RWKV_E2E_DEPTH,
+                              param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(1))
+    P = RWKV_SERVE["prompt"]
+    toks = torch.randint(0, cfg.vocab, (2, P), device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(2))
+    chunked, st_c = rwkv6.rwkv6_lm_apply(params, toks, cfg)
+    st, out = model.init_cache(params, None, 2, 0), []
+    for t in range(P):
+        logits, st = model.decode_step(params, st, toks[:, t:t + 1], None)
+        out.append(logits)
+    step = torch.stack(out, dim=1)
+
+    def greedy(states, last):
+        tok, seq = last.argmax(-1)[:, None], []
+        for _ in range(steps):
+            seq.append(tok)
+            logits, states = model.decode_step(params, states, tok, None)
+            tok = logits.argmax(-1)[:, None]
+        return torch.cat(seq, dim=1)
+
+    same = bool(torch.equal(greedy(st_c, chunked[:, -1]),
+                            greedy(st, step[:, -1])))
+    err = (chunked - step).abs().max().item()
+    tol = 1e-3 * max(1.0, step.abs().max().item())
+    finite = bool(torch.isfinite(chunked).all())
+    say(f"  rwkv6-3b fp32 {cfg.n_layers} layers at width {cfg.d_model}: "
+        f"chunked prefill of 2 x {P} against the recurrence one token a "
+        f"call: max logit err {err:.3g} (tol {tol:.3g}), max |logit| "
+        f"{step.abs().max().item():.3g}, finite {finite}, {steps} greedy "
+        f"tokens from each path's states equal: {same}")
+    require(finite and err <= tol and same,
+            "rwkv6-3b: the chunked prefill disagrees with the recurrence")
+    del model, params, chunked, step
+    free_cuda()
+
+
+def whisper_phase():
+    """whisper-large-v3 whole at its published width in bf16 through its
+    Model API: ``init_cache`` over seeded frames (the encoder) and the
+    prefill of a transcript, each timed between synchronisations; the
+    self-KV filled step by step from length 0 and greedy decode steps,
+    each step timed (ITL); the launch counters reset just before and read
+    just after (``flash_attention`` once an encoder layer a pass and once
+    for each decoder layer's self- and cross-attention; ``flash_decode``
+    twice a decoder layer a step); the memory and a profiled prefill and
+    decode steps. Then ``whisper_end_to_end_check``. Returns the
+    launches."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.models.layers import dt
+    cfg = get_arch("whisper-large-v3")
+    L, E = cfg.n_layers, cfg.enc_dec.n_encoder_layers
+    T, P, N = cfg.enc_dec.n_frames, WHISPER_RUN["transcript"], \
+        WHISPER_RUN["max_new"]
+    free_cuda()
+    model = build_model(cfg, "cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    frames = torch.randn(1, T, cfg.d_model, generator=gen,
+                         device="cuda").to(dt(cfg.compute_dtype))
+    toks = torch.randint(0, cfg.vocab, (1, P), generator=gen, device="cuda")
+    batch = {"tokens": toks, "frames": frames}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    model.prefill(params, batch, model.init_cache(params, batch, 1, P + N))
+    torch.cuda.synchronize()                        # warm: builds, plans
+    ops.reset_launch_counts()
+    cache, enc_ms = timed(lambda: model.init_cache(params, batch, 1, P + N))
+    (pre_logits, cache), pre_ms = timed(
+        lambda: model.prefill(params, batch, cache))
+    lengths = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    fill = []
+    for t in range(P):
+        (logits, cache), ms = timed(lambda: model.decode_step(
+            params, cache, toks[:, t:t + 1], lengths))
+        fill.append(ms)
+        lengths = lengths + 1
+    tf_err = (logits - pre_logits).abs().max().item()
+    itl, out = [], []
+    for _ in range(N):
+        tok = logits.argmax(-1)[:, None]
+        out.append(int(tok))
+        (logits, cache), ms = timed(lambda: model.decode_step(
+            params, cache, tok, lengths))
+        itl.append(ms)
+        lengths = lengths + 1
+    launches = ops.launch_counts()
+    finite = bool(torch.isfinite(pre_logits).all()) \
+        and bool(torch.isfinite(logits).all())
+    q = statistics.quantiles(itl, n=100)
+    n_b, gb = weights(params)
+    say(f"  whisper-large-v3 (Model API): {E} + {L} layers at d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.kv_heads} heads x "
+        f"{cfg.resolved_head_dim}, {n_b:.2f}B params, "
+        f"{gb:.2f} GB of bf16 weights, initialised in "
+        f"{init_s:.1f}s; init_cache (the encoder over {T} frames) "
+        f"{enc_ms:.3f} ms, prefill of {P} tokens {pre_ms:.3f} ms, self-KV "
+        f"fill p50 {statistics.median(fill):.3f} ms a step, itl p50/p99 "
+        f"{statistics.median(itl):.3f}/{q[98]:.3f} ms over {N} greedy "
+        f"steps, tokens {out[:8]}...; prefill's logits against the last "
+        f"fill step's (teacher forcing, bf16): max err {tf_err:.3g}; "
+        f"finite {finite}; launches {launches}; max memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    require(finite and all(0 <= t < cfg.vocab for t in out),
+            f"whisper-large-v3: logits finite {finite}, tokens {out[:8]}")
+    need = {"flash_attention": 2 * E + 2 * L,
+            "flash_decode": 2 * L * (P + N)}
+    for name, k in need.items():
+        require(launches[name] >= k,
+                f"whisper-large-v3: {name} launched {launches[name]} "
+                f"times, expected >= {k}")
+    say("  whisper-large-v3 where a step's time goes (torch.profiler; the "
+        "prefill includes init_cache's encoder):")
+    profile_phase(model, params, steps=4, top=8, extra={"frames": frames},
+                  prompt=P)
+    del model, params, cache, frames
+    free_cuda()
+    whisper_end_to_end_check()
+    return launches
+
+
+def whisper_end_to_end_check(steps: int = 8, tol_tf: float = 5e-4):
+    """whisper-large-v3 at its published width in fp32 and
+    ``WHISPER_E2E_DEPTH`` encoder and decoder layers, 2 sequences:
+    init_cache, prefill, the self-KV filled step by step and ``steps``
+    greedy steps through the kernels, against the same weights with the
+    kernels' plain versions (logits within 1e-3 x max(1, max |logit|),
+    greedy tokens equal); and the last decode step against the
+    teacher-forced decoder over the same tokens, within ``tol_tf`` (the
+    reference test's 5e-4)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import encdec
+    from repro_torch.models.api import build_model
+    base = get_arch("whisper-large-v3")
+    cfg = dataclasses.replace(
+        base, n_layers=WHISPER_E2E_DEPTH, param_dtype="float32",
+        compute_dtype="float32", enc_dec=dataclasses.replace(
+            base.enc_dec, n_encoder_layers=WHISPER_E2E_DEPTH))
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(1))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    P = WHISPER_RUN["transcript"]
+    frames = torch.randn(2, cfg.enc_dec.n_frames, cfg.d_model,
+                         generator=gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (2, P), generator=gen, device="cuda")
+    batch = {"tokens": toks, "frames": frames}
+
+    def run():
+        cache = model.init_cache(params, batch, 2, P + steps)
+        logits, cache = model.prefill(params, batch, cache)
+        out, seq = [logits], [toks]
+        lengths = torch.zeros((2,), dtype=torch.int32, device="cuda")
+        for t in range(P):
+            logits, cache = model.decode_step(params, cache,
+                                              toks[:, t:t + 1], lengths)
+            lengths = lengths + 1
+        for _ in range(steps):
+            out.append(logits)
+            tok = logits.argmax(-1)[:, None]
+            seq.append(tok)
+            logits, cache = model.decode_step(params, cache, tok, lengths)
+            lengths = lengths + 1
+        return torch.stack(out + [logits]), torch.cat(seq, dim=1)
+
+    got, seq = run()
+    with plain_attention():
+        want, _ = run()
+    err = (got - want).abs().max().item()
+    tol = 1e-3 * max(1.0, want.abs().max().item())
+    same = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+    tf = encdec.decode_forward(params, seq, encdec.encode(params, frames,
+                                                          cfg), cfg)[:, -1]
+    tf_err = (got[-1] - tf).abs().max().item()
+    say(f"  end-to-end fp32 whisper-large-v3 {cfg.enc_dec.n_encoder_layers}"
+        f" + {cfg.n_layers} layers at width {cfg.d_model}, {P}-token "
+        f"transcripts filled step by step + {steps} greedy steps x 2: max "
+        f"logit err {err:.3g} (tol {tol:.3g}), max |logit| "
+        f"{want.abs().max().item():.3g}, greedy tokens equal: {same}; last "
+        f"decode step against the teacher-forced decoder: max err "
+        f"{tf_err:.3g} (tol {tol_tf})")
+    require(bool(torch.isfinite(got).all()) and err <= tol and same,
+            "whisper-large-v3: kernel path disagrees with the plain path")
+    require(tf_err < tol_tf, "whisper-large-v3: decode disagrees with "
+            "teacher forcing")
+    del model, params
+    free_cuda()
+
+
 def lint_phase():
     """``repro_torch.analysis.lint``'s ``run_lint`` on the card, held to
     the committed baseline. Returns the run's launches and wall seconds."""
@@ -1487,6 +1839,13 @@ def main() -> int:
              for arch, run in WIDE_SERVE.items()])
         say(f"phase 10 wide: both archs served and checked, "
             f"{time.perf_counter() - t10:.1f}s wall")
+
+        say("phase 11 rwkv6-3b and whisper-large-v3 whole at full width:")
+        t11 = time.perf_counter()
+        rwkv_launches = rwkv_phase()
+        whisper_launches = whisper_phase()
+        say(f"phase 11: rwkv6-3b served and whisper-large-v3 run and "
+            f"checked, {time.perf_counter() - t11:.1f}s wall")
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -1508,7 +1867,10 @@ def main() -> int:
                                  "lint": lint_launches[name],
                                  **{f"serve {arch}": n[name] for arch, n
                                     in {**moe_launches,
-                                        **wide_launches}.items()}},
+                                        **wide_launches}.items()},
+                                 "serve rwkv6-3b": rwkv_launches[name],
+                                 "model api whisper-large-v3":
+                                     whisper_launches[name]},
             "max_abs_err": main_case["max_abs_err"],
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],

@@ -12,9 +12,9 @@ Port of ``repro.analysis.calibrate``. It runs on the card by default
 given): the kernel timelines and differentials run the port's three
 kernels there (``chacha20``, ``flash_attention``, ``flash_decode``). The
 model timelines run at each architecture's full published config on the
-meta device, where nothing is allocated. Only the families the port builds
-are calibrated; the others are listed under ``"skipped"`` with the
-ROADMAP item that ports them.
+meta device, where nothing is allocated. The port builds all ten archs'
+families, so every arch is calibrated and ``"skipped"`` is empty; an arch
+of a family ``build_model`` lacked would be listed there.
 
 ``--update`` writes ``derived_cuda.json`` beside the copied
 ``derived.json`` and never over it: the port's serving path reads the
@@ -113,10 +113,9 @@ FAMILY_PROFILES: Dict[str, Tuple[Dict, Dict]] = {
               {"kind": "uniform", "lo": 48, "hi": 160}),
 }
 
-# reduced-config archs the static-vs-counter differential runs; the
-# reference's third, rwkv6-3b, waits for its family (ROADMAP queue 1,
-# item 7)
-DIFFERENTIAL_ARCHS = ("qwen1.5-0.5b", "stablelm-12b")
+# reduced-config archs the static-vs-counter differential runs, the
+# reference's three: attention, GQA and recurrent paths
+DIFFERENTIAL_ARCHS = ("qwen1.5-0.5b", "stablelm-12b", "rwkv6-3b")
 
 # documented known divergence: FlopCounterMode counts matrix products,
 # and chacha20 is integer add/xor/rotate work it does not count, so the
@@ -340,10 +339,10 @@ def _model_differential(arch: str, tol: float, device="cuda") -> Dict:
 
 
 def ported_archs() -> Tuple[List[str], Dict[str, str]]:
-    """(archs whose family the port builds, {other arch: the ROADMAP item
-    that ports it})."""
+    """(archs whose family the port builds, {other arch: why it is
+    skipped}); every arch is ported, so the second is empty."""
     from repro_torch.configs import arch_ids, get_arch
-    from repro_torch.models.api import FAMILIES, LATER_SLICES
+    from repro_torch.models.api import FAMILIES
 
     ported, skipped = [], {}
     for arch in arch_ids():
@@ -351,7 +350,7 @@ def ported_archs() -> Tuple[List[str], Dict[str, str]]:
         if family in FAMILIES:
             ported.append(arch)
         else:
-            skipped[arch] = LATER_SLICES.get(family, "a later slice")
+            skipped[arch] = f"build_model does not build family {family!r}"
     return ported, skipped
 
 
@@ -415,9 +414,7 @@ def run_calibration(archs: Optional[List[str]] = None,
                       "decode_flops": ref_dec_flops},
         "kernels": kernels,
         "workloads": workloads,
-        "skipped": {a: f"family {get_arch(a).family!r} is not ported yet; "
-                       f"it comes with {item}"
-                    for a, item in skipped.items()},
+        "skipped": skipped,
     }
 
 

@@ -10,9 +10,9 @@
 It runs on the card by default (``--device cuda``; it raises without a GPU
 unless ``--device cpu`` is given): the kernel suite
 (``calibrate.kernel_timelines``) runs the port's three kernels there. The
-model zoo is the ported archs at their published configs, traced on the
-meta device (``calibrate.entrypoints``); the other archs are listed under
-``"skipped"``, as calibration lists them.
+model zoo is all ten archs at their published configs, traced on the
+meta device (``calibrate.entrypoints``); ``"skipped"`` lists any arch
+whose family the port does not build, as calibration does (none).
 
 Two finding kinds, both ranked by severity, as in the reference:
 
@@ -39,8 +39,16 @@ repeats (:func:`fold_counts`): 9 groups, each 6 Mamba2 layers and the
 shared block, and in prefill an SSD chunk loop inside each layer; they
 fold level by level (:func:`fold_parts`) to the reference's trips, 9 for
 the shared block, 54 for a layer and 54 x chunks for the chunk loop's
-body. A stream with no such run (the kernel suite) is segmented as it
-is. Calibration does not fold: its artifact, ``derived_cuda.json``,
+body. RWKV6's prefill nests its WKV chunk loop in each layer, at the
+port's blocks (``rwkv6.wkv_block_len``: 64 of 32 positions a layer at a
+2,048-token prompt, where the reference's 16 chunks of 128 overflow), so
+its body folds to 32 x 64 = 2,048 trips where the reference has 512.
+The encoder-decoder runs its stacks one after another, each of
+``n_layers`` repeats (prefill: the encoder in ``init_cache``, the
+cross-K/V of each decoder layer, the encoder again and the decoder;
+:func:`fold_runs`), and each folds, at the trips around it. A stream
+with no such run (the kernel suite) is segmented as it is. Calibration
+does not fold: its artifact, ``derived_cuda.json``,
 stays as ``segment`` gives it.
 
 ``--check-baseline`` keeps the reference's rules: it fails when the
@@ -124,32 +132,63 @@ def layer_run(keys: Sequence, n_layers: int) -> Optional[Tuple[int, int]]:
     return None
 
 
-def fold_parts(ops: Sequence, counts: Sequence[int]) -> List[Tuple[list, int]]:
+def fold_parts(ops: Sequence, counts: Sequence[int],
+               runs: int = 1) -> List[Tuple[list, int]]:
     """A stream cut into ``(ops, trips)`` parts in stream order, with
     nested repeats folded: the run of ``counts[0]`` repeats is found in the
-    stream (``layer_run``), the run of ``counts[1]`` inside one repeat of
-    it, and so on, each inner body at the product of the counts around
-    it; what lies before and after a run keeps its outer trips. A level
-    whose run is not found leaves its stream as it is."""
-    def nest(seq, counts, trips):
-        run = layer_run(seq, counts[0]) if counts else None
-        if run is None:
+    stream (``layer_run``; ``runs`` such runs, where stacks run one after
+    another, each the longest period left in what lies around the runs
+    found so far), the run of ``counts[1]`` inside one repeat of it, and
+    so on, each inner body at the product of the counts around it; what
+    lies around a run keeps its outer trips. A level whose run is not
+    found leaves its stream as it is."""
+    def fold(seq, counts, trips, runs):
+        if not counts:
             return [(list(seq), trips)]
-        start, period = run
-        end = start + counts[0] * period
-        return ([(list(seq[:start]), trips)]
-                + nest(seq[start:start + period], counts[1:],
-                       trips * counts[0])
-                + [(list(seq[end:]), trips)])
-    return nest(ops, tuple(counts), 1)
+        n = counts[0]
+        segs = [(list(seq), False)]     # (ops, is one folded repeat)
+        for _ in range(runs):
+            best = None                 # (segment, start, period)
+            for i, (seg, body) in enumerate(segs):
+                run = None if body else layer_run(seg, n)
+                if run and (best is None or run[1] > best[2]):
+                    best = (i, *run)
+            if best is None:
+                break
+            i, start, period = best
+            seg = segs[i][0]
+            segs[i:i + 1] = [(seg[:start], False),
+                             (seg[start:start + period], True),
+                             (seg[start + n * period:], False)]
+        out: List[Tuple[list, int]] = []
+        for seg, body in segs:
+            out += fold(seg, counts[1:], trips * n, 1) if body \
+                else [(seg, trips)]
+        return out
+    return fold(ops, tuple(counts), 1, runs)
 
 
 def fold_counts(cfg, entrypoint: str, prompt: int) -> Tuple[int, ...]:
     """The repeats nested in an entrypoint's op stream, outermost first:
-    the layer loop (``n_layers``); for the hybrid the groups, the Mamba2
-    layers of a group and, in prefill, the SSD chunk loop of a layer
-    (``prompt`` / the chunk it runs with). These are the reference's
-    nested scans: its lint walks them to the same trips."""
+    the layer loop (``n_layers``; the encoder-decoder's two stacks, which
+    have one depth in every config, fold at it one after the other); for
+    the hybrid the groups, the Mamba2 layers of a group and, in prefill,
+    the SSD chunk loop of a layer (``prompt`` / the chunk it runs with);
+    for RWKV6's prefill the WKV loop of a layer (``prompt`` / the block
+    it runs with). These are the reference's nested scans: its lint walks
+    them to the same trips, but for RWKV6's blocks (module docstring)."""
+    if cfg.enc_dec is not None and cfg.enc_dec.n_encoder_layers \
+            != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: encoder and decoder depths differ "
+                         f"({cfg.enc_dec.n_encoder_layers}, "
+                         f"{cfg.n_layers}); the fold takes one count a "
+                         "level")
+    if cfg.rwkv is not None:
+        from repro_torch.models.rwkv6 import wkv_block_len
+        if entrypoint == "prefill":
+            return (cfg.n_layers,
+                    prompt // wkv_block_len(prompt, cfg.rwkv.chunk))
+        return (cfg.n_layers,)
     if cfg.hybrid is None:
         return (cfg.n_layers,)
     from repro_torch.models.hybrid import _groups
@@ -160,15 +199,25 @@ def fold_counts(cfg, entrypoint: str, prompt: int) -> Tuple[int, ...]:
     return counts
 
 
+def fold_runs(cfg, entrypoint: str) -> int:
+    """How many runs of the outer count an entrypoint's stream holds: the
+    encoder-decoder's prefill runs the encoder (in ``init_cache``), the
+    cross-K/V of each decoder layer, the encoder again and the decoder,
+    one after another; every other stream has one layer loop."""
+    return 4 if cfg.enc_dec is not None and entrypoint == "prefill" else 1
+
+
 def fold_layers(ops: List[Tuple[str, EqnCost]], counts: Sequence[int],
                 name: str, machine: MachineModel = MachineModel(),
-                fold_frac: float = FOLD_FRAC) -> RegionTimeline:
+                fold_frac: float = FOLD_FRAC, runs: int = 1
+                ) -> RegionTimeline:
     """Segment a recorded op stream (``regions.record``) with its nested
     repeats folded by ``fold_parts`` (``(n_layers,)``: the layer loop's
-    repeats of one layer into one body at ``trips = n_layers``): the
-    timeline the reference's scan walk gives."""
+    repeats of one layer into one body at ``trips = n_layers``; ``runs``
+    such loops one after another): the timeline the reference's scan walk
+    gives."""
     builder = _Builder(machine)
-    for part, trips in fold_parts(ops, counts):
+    for part, trips in fold_parts(ops, counts, runs):
         for prim, cost in part:
             builder.leaf(prim, cost, trips)
         builder.flush()
@@ -188,7 +237,7 @@ def folded_model_timelines(arch: str,
     acfg = get_arch(arch)
     return {name: fold_layers(record(fn, *args),
                               fold_counts(acfg, name, CALIB_PROMPT), name,
-                              machine)
+                              machine, runs=fold_runs(acfg, name))
             for name, (fn, args) in entrypoints(acfg, CALIB_PROMPT).items()}
 
 

@@ -26,7 +26,7 @@
 //   no-swizzle "core matrix" order wgmma reads (8 rows x 16 bytes a core
 //   matrix, 128 contiguous bytes), so one layout serves every head dim.
 // - K/V tiles come through a ring of STAGES stages with cp.async (16 bytes a
-//   thread, zero-filled past S): the copies of tiles j + 1 .. j + STAGES - 1
+//   thread, zero-filled past Skv): the copies of tiles j + 1 .. j + STAGES - 1
 //   overlap the products of tile j. Four stages at DQK <= 64 (72 KB a
 //   one-warpgroup block, three blocks an SM), three at DQK = 128 (112 KB, two
 //   blocks an SM; 128 KB with two warpgroups, one), two at MLA's DQK = 192
@@ -40,7 +40,7 @@
 //   layout: a thread holds 2 rows x 16 keys of S, so a row's max takes two
 //   quad shuffles, and l stays a per-thread partial sum until the end.
 //   Masking uses NEG_INF = -1e30 as the reference, only on tiles that cross
-//   S or the diagonal.
+//   Skv or the diagonal.
 // - Causal query tiles launch heaviest first (the tile index counts down
 //   along the slowest grid axis), so the last wave holds the short tiles.
 // - The output is staged in shared memory and written as 16-byte rows.
@@ -81,10 +81,20 @@
 // (the reference's 2e-5 tolerance rules out TF32), 32x32 tiles widened to
 // fp32 in shared memory, lane j of a warp owning key j of a tile.
 //
+// Cross-attention (whisper's decoder over its encoder's frames): the queries
+// and the keys have lengths of their own, Sq and Skv, and the attention is
+// not causal. Query tiles and output rows are bounded by Sq, key tiles and
+// the key mask by Skv; a block walks all of its Skv keys. Causal attention
+// takes Sq = Skv only, as the TPU kernel's mask assumes aligned positions,
+// and the entry point refuses it otherwise. At whisper's cross shape (B1
+// H20 Sq64 Skv1500 D64) the bytes of k and v bound it, 8 MB or 2.4 us, and
+// a block a (head, query tile) gives 20 blocks for the 132 SMs: simple and
+// right first; its time is in PERF.md.
+//
 // Layout: every tensor is passed with its own strides (batch, head, sequence)
 // and a contiguous last dimension, so the model hands over transpose views of
-// its [B, S, H, D] activations without a copy. Rows past S are zero-filled
-// on load and masked, so any S works.
+// its [B, S, H, D] activations without a copy. Rows past Sq or Skv are
+// zero-filled on load and masked, so any lengths work.
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
@@ -107,7 +117,7 @@ template <int DQK, int DV> struct Smem {
   static constexpr size_t BYTES = FLOATS * sizeof(float);
 };
 
-// Rows [row0, row0 + BK_ROWS) of a [S, D] slab with row stride rs (elements)
+// Rows [row0, row0 + NROWS) of an [S, D] slab with row stride rs (elements)
 // into shared memory with row stride ds (floats), widened to fp32; rows at or
 // past S are zero.
 template <typename T, int D, int NROWS>
@@ -137,7 +147,7 @@ template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
-                       int H, int KVH, int S,
+                       int H, int KVH, int Sq, int Skv,
                        long long qb, long long qh, long long qs,
                        long long kb, long long kh, long long ks,
                        long long vb, long long vh, long long vs,
@@ -161,7 +171,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kp = k + b * kb + kvh * kh;
   const T* vp = v + b * vb + kvh * vh;
 
-  load_tile<T, DQK, BQ>(q_s, DQK, qp, qs, q0, S);
+  load_tile<T, DQK, BQ>(q_s, DQK, qp, qs, q0, Sq);
 
   float m[ROWS], l[ROWS], acc[ROWS][DPL];
 #pragma unroll
@@ -174,11 +184,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const float* q_w = q_s + warp * ROWS * DQK;   // this warp's query rows
   float* p_w = p_s + warp * ROWS * BK;        // this warp's probabilities
-  const int kv_end = causal ? min(S, q0 + BQ) : S;
+  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
   for (int kv0 = 0; kv0 < kv_end; kv0 += BK) {
     __syncthreads();                  // previous tile consumed by every warp
-    load_tile<T, DQK, BK>(k_s, KS, kp, ks, kv0, S);
-    load_tile<T, DV, BK>(v_s, DV, vp, vs, kv0, S);
+    load_tile<T, DQK, BK>(k_s, KS, kp, ks, kv0, Skv);
+    load_tile<T, DV, BK>(v_s, DV, vp, vs, kv0, Skv);
     __syncthreads();
 
     // scores: lane owns key kv0 + lane, for each of the warp's rows
@@ -204,7 +214,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       const int row = q0 + warp * ROWS + r;
-      const bool valid = key < S && (!causal || key <= row);
+      const bool valid = key < Skv && (!causal || key <= row);
       const float sr = valid ? s[r] * scale : NEG_INF;
       const float m_new = fmaxf(m[r], warp_max(sr));
       const float p = valid ? expf(sr - m_new) : 0.f;
@@ -246,7 +256,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const int row = q0 + warp * ROWS + r;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
 #pragma unroll
     for (int c = 0; c < DPL; ++c) {
@@ -258,7 +268,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int KVH, int S, const long long* st,
+                   int B, int H, int KVH, int Sq, int Skv, const long long* st,
                    int causal, cudaStream_t stream) {
   constexpr size_t smem = Smem<DQK, DV>::BYTES;
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(DQK)));
@@ -268,10 +278,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
+  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), H, KVH, S,
+      static_cast<const T*>(v), static_cast<T*>(o), H, KVH, Sq, Skv,
       st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], st[9], st[10], st[11], scale, causal);
   return cudaGetLastError();
@@ -489,7 +499,7 @@ template <int DQK, int DV, int NW>
 __global__ void __launch_bounds__(NW * WG)
 flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, bf16* __restrict__ o,
-                          int H, int KVH, int S,
+                          int H, int KVH, int Sq, int Skv,
                           long long qb, long long qh, long long qs,
                           long long kb, long long kh, long long ks,
                           long long vb, long long vh, long long vs,
@@ -510,16 +520,16 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const bf16* kp = k + b * kb + kvh * kh;
   const bf16* vp = v + b * vb + kvh * vh;
 
-  const int kv_end = causal ? min(S, q0 + BQ) : S;
+  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
   const int n_kv = (kv_end + BK - 1) / BK;
 
   // cp.async group p holds tile p (group 0 also Q); STAGES - 1 in flight
-  load_tile<DQK, WG>(q_s, q + b * qb + h * qh, qs, q0, S, tid);
+  load_tile<DQK, WG>(q_s, q + b * qb + h * qh, qs, q0, Sq, tid);
 #pragma unroll
   for (int p = 0; p < STAGES - 1; ++p) {
     if (p < n_kv) {
-      load_tile<DQK, NT>(kv_s + p * SM::STAGE, kp, ks, p * BK, S, threadIdx.x);
-      load_tile<DV, NT>(kv_s + p * SM::STAGE + SM::QK_TILE, vp, vs, p * BK, S,
+      load_tile<DQK, NT>(kv_s + p * SM::STAGE, kp, ks, p * BK, Skv, threadIdx.x);
+      load_tile<DV, NT>(kv_s + p * SM::STAGE + SM::QK_TILE, vp, vs, p * BK, Skv,
                         threadIdx.x);
     }
     cp_async_commit();
@@ -538,8 +548,8 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     const int ahead = t + STAGES - 1;   // into the stage tile t - 1 used
     if (ahead < n_kv) {
       const uint32_t nxt = kv_s + (ahead % STAGES) * SM::STAGE;
-      load_tile<DQK, NT>(nxt, kp, ks, ahead * BK, S, threadIdx.x);
-      load_tile<DV, NT>(nxt + SM::QK_TILE, vp, vs, ahead * BK, S, threadIdx.x);
+      load_tile<DQK, NT>(nxt, kp, ks, ahead * BK, Skv, threadIdx.x);
+      load_tile<DV, NT>(nxt + SM::QK_TILE, vp, vs, ahead * BK, Skv, threadIdx.x);
     }
     cp_async_commit();
     cp_async_wait<STAGES - 1>();        // tile t (and Q) has landed
@@ -560,7 +570,7 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
     // online softmax in the log2 domain, rows row_a (r = 0) and row_a + 8
     const int kv0 = t * BK;
-    const bool edge = kv0 + BK > S || (causal && kv0 + BK - 1 > q0);
+    const bool edge = kv0 + BK > Skv || (causal && kv0 + BK - 1 > q0);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -568,7 +578,7 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
       float x = s[i] * scale_log2;
       if (edge) {
         const int key = kv0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
-        if (key >= S || (causal && key > row_a + 8 * r)) x = NEG_INF;
+        if (key >= Skv || (causal && key > row_a + 8 * r)) x = NEG_INF;
       }
       s[i] = x;
       mx[r] = fmaxf(mx[r], x);
@@ -638,7 +648,7 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   for (int j = 0; j < 64 * (DV / 8) / WG; ++j) {
     const int i = j * WG + tid;
     const int row = i / (DV / 8), c = (i % (DV / 8)) * 8;
-    if (q0 + row < S)
+    if (q0 + row < Sq)
       *reinterpret_cast<uint4*>(op + (q0 + row) * os + c) =
           *reinterpret_cast<const uint4*>(o_s + row * OS + c);
   }
@@ -646,7 +656,7 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
 template <int DQK, int DV, int NW>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int KVH, int S, const long long* st,
+                   int B, int H, int KVH, int Sq, int Skv, const long long* st,
                    int causal, cudaStream_t stream) {
   constexpr int smem = Smem<DQK, DV, NW>::BYTES;
   const float scale_log2 =
@@ -657,10 +667,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid(H / NW, B, (S + BQ - 1) / BQ);
+  const dim3 grid(H / NW, B, (Sq + BQ - 1) / BQ);
   kernel<<<grid, NW * WG, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), H, KVH, S,
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), H, KVH, Sq, Skv,
       st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], st[9], st[10], st[11], scale_log2, causal);
   return cudaGetLastError();
@@ -670,14 +680,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // MLA (DQK 192) has G 1 and always takes one.
 template <int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int KVH, int S, const long long* st,
+                   int B, int H, int KVH, int Sq, int Skv, const long long* st,
                    int causal, cudaStream_t stream) {
   if constexpr (DQK == 192)
-    return launch<DQK, DV, 1>(q, k, v, o, B, H, KVH, S, st, causal, stream);
+    return launch<DQK, DV, 1>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream);
   else
     return (H / KVH) % 2 == 0
-               ? launch<DQK, DV, 2>(q, k, v, o, B, H, KVH, S, st, causal, stream)
-               : launch<DQK, DV, 1>(q, k, v, o, B, H, KVH, S, st, causal, stream);
+               ? launch<DQK, DV, 2>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream)
+               : launch<DQK, DV, 1>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream);
 }
 
 }  // namespace tc
@@ -685,28 +695,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // The kernel for one (dtype, DQK, DV): wgmma for bf16, CUDA cores for fp32.
 template <typename T, int DQK, int DV>
 cudaError_t launch_dims(const void* q, const void* k, const void* v, void* o,
-                        int B, int H, int KVH, int S, const long long* st,
+                        int B, int H, int KVH, int Sq, int Skv, const long long* st,
                         int causal, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    return tc::launch<DQK, DV>(q, k, v, o, B, H, KVH, S, st, causal, stream);
+    return tc::launch<DQK, DV>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream);
   else
-    return launch<float, DQK, DV>(q, k, v, o, B, H, KVH, S, st, causal, stream);
+    return launch<float, DQK, DV>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream);
 }
 
 template <typename T>
 cudaError_t dispatch_d(int DQK, int DV, const void* q, const void* k,
-                       const void* v, void* o, int B, int H, int KVH, int S,
-                       const long long* st, int causal, cudaStream_t stream) {
+                       const void* v, void* o, int B, int H, int KVH, int Sq,
+                       int Skv, const long long* st, int causal,
+                       cudaStream_t stream) {
   if (DQK == 192 && DV == 128)
-    return launch_dims<T, 192, 128>(q, k, v, o, B, H, KVH, S, st, causal, stream);
+    return launch_dims<T, 192, 128>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream);
   if (DQK != DV) return cudaErrorInvalidValue;
   switch (DQK) {
-    case 16: return launch_dims<T, 16, 16>(q, k, v, o, B, H, KVH, S, st, causal, stream);
-    case 32: return launch_dims<T, 32, 32>(q, k, v, o, B, H, KVH, S, st, causal, stream);
-    case 64: return launch_dims<T, 64, 64>(q, k, v, o, B, H, KVH, S, st, causal, stream);
-    case 80: return launch_dims<T, 80, 80>(q, k, v, o, B, H, KVH, S, st, causal, stream);
-    case 128: return launch_dims<T, 128, 128>(q, k, v, o, B, H, KVH, S, st, causal, stream);
-    case 160: return launch_dims<T, 160, 160>(q, k, v, o, B, H, KVH, S, st, causal, stream);
+    case 16: return launch_dims<T, 16, 16>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream);
+    case 32: return launch_dims<T, 32, 32>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream);
+    case 64: return launch_dims<T, 64, 64>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream);
+    case 80: return launch_dims<T, 80, 80>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream);
+    case 128: return launch_dims<T, 128, 128>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream);
+    case 160: return launch_dims<T, 160, 160>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -720,22 +731,26 @@ int smem_dims(int dtype, bool two) {
 
 }  // namespace
 
-// q [B,H,S,DQK], k [B,KVH,S,DQK], v [B,KVH,S,DV], o [B,H,S,DV]; scores are
-// scaled by 1/sqrt(DQK). (DQK, DV) is (D, D) for D in {16, 32, 64, 80, 128,
-// 160} or (192, 128). Strides (in elements) are (batch, head, sequence) for q, k, v,
-// o in that order: 12 values.
+// q [B,H,Sq,DQK], k [B,KVH,Skv,DQK], v [B,KVH,Skv,DV], o [B,H,Sq,DV]; scores
+// are scaled by 1/sqrt(DQK); causal only where Sq = Skv. (DQK, DV) is (D, D)
+// for D in {16, 32, 64, 80, 128, 160} or (192, 128). Strides (in elements)
+// are (batch, head, sequence) for q, k, v, o in that order: 12 values.
 // Returns the launch's cudaGetLastError().
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int dtype, int B, int H, int KVH,
-                                   int S, int DQK, int DV, const long long* strides,
-                                   int causal, void* stream) {
-  if (B <= 0 || S <= 0 || KVH <= 0 || H % KVH != 0) return cudaErrorInvalidValue;
+                                   int Sq, int Skv, int DQK, int DV,
+                                   const long long* strides, int causal,
+                                   void* stream) {
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || KVH <= 0 || H % KVH != 0 ||
+      (causal && Sq != Skv))
+    return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_F32)
-    return dispatch_d<float>(DQK, DV, q, k, v, o, B, H, KVH, S, strides, causal, st);
+    return dispatch_d<float>(DQK, DV, q, k, v, o, B, H, KVH, Sq, Skv, strides,
+                             causal, st);
   if (dtype == DTYPE_BF16)
-    return dispatch_d<__nv_bfloat16>(DQK, DV, q, k, v, o, B, H, KVH, S, strides,
-                                     causal, st);
+    return dispatch_d<__nv_bfloat16>(DQK, DV, q, k, v, o, B, H, KVH, Sq, Skv,
+                                     strides, causal, st);
   return cudaErrorInvalidValue;
 }
 

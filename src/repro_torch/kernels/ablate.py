@@ -12,14 +12,24 @@ with the kernel. Needs a GPU and ``nvcc``; from the repository root:
 
     PYTHONPATH=src python -m repro_torch.kernels.ablate
 
-prints one line a shape, the card's name and power limit first.
+prints one line a shape, the card's name and power limit first. With
+``--against SRC`` it builds another copy of the kernel's source instead
+(another commit's ``flash_attention.cu``, with the headers beside it) and
+times it beside this one in turns (this, other, other, this, ...) at the
+bf16 shapes of ``AGAINST_SHAPES``, so that two versions are compared on
+one card in one process:
+
+    PYTHONPATH=src python -m repro_torch.kernels.ablate --against \
+        parent/src/repro_torch/csrc/flash_attention.cu
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import statistics
 import subprocess
 import time
+from pathlib import Path
 
 from repro_torch.kernels import build
 
@@ -51,8 +61,10 @@ VARIANTS = {
 }
 # (B, H, KVH, S, D), causal, q/k/v as transpose views of [B, S, heads, D]
 SHAPES = [(1, 16, 16, 512, 64), (4, 48, 4, 500, 128)]
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
+# --against: the serve and GQA shapes and zamba2-2.7b's and stablelm-12b's
+# prefill (head dims 80 and 160)
+AGAINST_SHAPES = SHAPES + [(1, 32, 32, 512, 80), (1, 32, 8, 512, 160)]
+AGAINST_ROUNDS = 6           # timed calls of each version a shape
 
 
 def variant_source(edits) -> str:
@@ -66,17 +78,20 @@ def variant_source(edits) -> str:
     return src
 
 
-def build_variants() -> dict:
-    """Compile every variant, all at once; returns name -> loaded library."""
+def build_variants(sources: dict) -> dict:
+    """Compile each ``name -> (source text, header directory)`` of
+    ``sources``, all at once; returns name -> loaded library."""
     out = build.BUILD_DIR / "ablate"
-    out.mkdir(parents=True, exist_ok=True)
-    for header in build.CSRC.glob("*.cuh"):
-        (out / header.name).write_text(header.read_text())
     procs = {}
-    for i, (name, edits) in enumerate(VARIANTS.items()):
-        cu = out / f"fa_{i}.cu"
-        cu.write_text(variant_source(edits))
-        so = out / f"libfa_{i}.so"
+    for i, (name, (text, headers)) in enumerate(sources.items()):
+        # each variant in a directory of its own, beside its own headers
+        d = out / f"v{i}"
+        d.mkdir(parents=True, exist_ok=True)
+        for header in Path(headers).glob("*.cuh"):
+            (d / header.name).write_text(header.read_text())
+        cu = d / "fa.cu"
+        cu.write_text(text)
+        so = d / "libfa.so"
         flags = [f for f in build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
         procs[name] = (so, subprocess.Popen(
             [build.nvcc(), *flags, "-o", str(so), str(cu)],
@@ -116,35 +131,78 @@ def device_ms(fn, iters: int = 50, reps: int = 5) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs) / iters
 
 
-def main() -> int:
+def caller(lib, text: str):
+    """``fn(q, k, v, o, B, H, KVH, S, D, st, stream)``: a causal bf16 call
+    of ``lib``'s ``flash_attention_fwd``, whose C signature is read from
+    its source ``text``: one sequence length, or ``Sq`` and ``Skv``."""
+    two = "int Sq, int Skv, int DQK" in text
+    fn = lib.flash_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (8 if two else 7) \
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
+    code = build.DTYPE_CODES["bfloat16"]
+
+    def call(q, k, v, o, B, H, KVH, S, D, st, stream):
+        lengths = (S, S) if two else (S,)
+        return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  code, B, H, KVH, *lengths, D, D, st, 1, stream)
+    return call
+
+
+def main(argv=None) -> int:
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", default=None, metavar="SRC",
+                    help="another flash_attention.cu to time beside this "
+                         "one, in turns, instead of the ablations")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ablate: needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     print(card, flush=True)
-    libs = build_variants()
+    mine = (build.CSRC / "flash_attention.cu").read_text()
+    if args.against:
+        other = Path(args.against)
+        sources = {"this": (mine, build.CSRC),
+                   "other": (other.read_text(), other.parent)}
+        shapes = AGAINST_SHAPES
+    else:
+        sources = {name: (variant_source(edits), build.CSRC)
+                   for name, edits in VARIANTS.items()}
+        shapes = SHAPES
+    libs = build_variants(sources)
+    calls = {name: caller(libs[name], text)
+             for name, (text, _) in sources.items()}
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
-    for B, H, KVH, S, D in SHAPES:
+    for B, H, KVH, S, D in shapes:
         q, k, v = (torch.randn(B, S, h, D, generator=gen, device="cuda")
                    .to(torch.bfloat16).transpose(1, 2)
                    for h in (H, KVH, KVH))
         o = torch.empty_like(q)
         st = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3], *o.stride()[:3])
-        row = []
-        for name, lib in libs.items():
-            fn = lib.flash_attention_fwd
-            fn.argtypes = _ARGTYPES
-            ms = device_ms(lambda fn=fn: fn(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                build.DTYPE_CODES["bfloat16"], B, H, KVH, S, D, D, st, 1,
-                stream))
-            row.append(f"{name} {ms * 1e3:.1f} us")
-        print(f"B{B} H{H} KVH{KVH} S{S} D{D} causal bf16: " + "; ".join(row),
-              flush=True)
+
+        def time_one(name):
+            return device_ms(lambda: calls[name](q, k, v, o, B, H, KVH, S,
+                                                 D, st, stream))
+
+        label = f"B{B} H{H} KVH{KVH} S{S} D{D} causal bf16"
+        if not args.against:
+            print(f"{label}: " + "; ".join(
+                f"{name} {time_one(name) * 1e3:.1f} us" for name in calls),
+                flush=True)
+            continue
+        times = {"this": [], "other": []}
+        for r in range(AGAINST_ROUNDS):
+            for name in (("this", "other") if r % 2 == 0
+                         else ("other", "this")):
+                times[name].append(time_one(name) * 1e3)
+        print(f"{label}: " + "; ".join(
+            f"{name} median {statistics.median(t):.2f} us "
+            f"({', '.join(f'{x:.2f}' for x in t)})"
+            for name, t in times.items()), flush=True)
     return 0
 
 

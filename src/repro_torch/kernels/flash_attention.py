@@ -3,7 +3,10 @@
 Port of ``repro.kernels.flash_attention``: blockwise online-softmax
 attention with GQA head folding and causal tile skipping, written by hand
 for Hopper in ``csrc/flash_attention.cu`` (the source's header says how
-it maps the Pallas kernel onto the card). This wrapper validates the
+it maps the Pallas kernel onto the card), widened to cross-attention:
+queries and keys of lengths of their own, ``Sq`` and ``Skv``, without a
+mask. Causal attention takes ``Sq == Skv`` only, as the TPU kernel's
+mask assumes aligned positions. This wrapper validates the
 operands, allocates the output, launches on PyTorch's current stream and
 counts the launch. It runs only on CUDA tensors; the plain version is
 ``repro_torch.kernels.ref.attention_ref``, and the custom op in
@@ -20,7 +23,7 @@ from repro_torch.kernels import build
 # kernel launches since the last reset (see kernels.ops.reset_launch_counts)
 launches = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
 
 
@@ -42,11 +45,20 @@ def out_like(q: torch.Tensor, dv: int) -> torch.Tensor:
     return o.permute(*[order.index(i) for i in range(3)], 3)
 
 
+def check_causal(Sq: int, Skv: int, causal: bool) -> None:
+    """Causal attention is defined here for aligned positions only."""
+    if causal and Sq != Skv:
+        raise ValueError(f"flash_attention: causal attention needs Sq == "
+                         f"Skv (got Sq {Sq}, Skv {Skv}); the mask assumes "
+                         "aligned positions")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q [B,H,S,D], k [B,KVH,S,D], v [B,KVH,S,Dv] -> [B,H,S,Dv] in
+    """q [B,H,Sq,D], k [B,KVH,Skv,D], v [B,KVH,Skv,Dv] -> [B,H,Sq,Dv] in
     ``q.dtype``, with the scores scaled by 1/sqrt(D) as in the TPU kernel;
-    (D, Dv) one of ``build.ATTENTION_DIMS``.
+    (D, Dv) one of ``build.ATTENTION_DIMS``; ``causal`` only where
+    ``Sq == Skv``.
 
     Any strides with a contiguous last dimension; the output takes q's
     order of dims (``out_like``)."""
@@ -54,13 +66,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    B, H, S, D = q.shape
-    KVH, Dv = k.shape[1], v.shape[-1]
-    if (k.shape != (B, KVH, S, D) or v.shape != (B, KVH, S, Dv)
-            or H % KVH):
+    B, H, Sq, D = q.shape
+    KVH, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if (k.shape != (B, KVH, Skv, D) or v.shape != (B, KVH, Skv, Dv)
+            or KVH == 0 or H % KVH or Skv == 0):
         raise ValueError(f"flash_attention: k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)} "
-                         "(Sq must equal Skv, H a multiple of KVH)")
+                         "(k and v of one length Skv > 0, H a multiple of "
+                         "KVH)")
+    check_causal(Sq, Skv, causal)
     if (D, Dv) not in build.ATTENTION_DIMS:
         raise ValueError(f"flash_attention: head dims (q/k {D}, v {Dv}) not "
                          f"in {build.ATTENTION_DIMS}")
@@ -72,7 +86,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
     fn = build.bind("flash_attention", "flash_attention_fwd", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), code,
-             B, H, KVH, S, D, Dv, strides, int(causal),
+             B, H, KVH, Sq, Skv, D, Dv, strides, int(causal),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check("flash_attention", err, "flash_attention")
     launches += 1

@@ -33,8 +33,8 @@ from repro_torch.kernels import ref
                          device_types="cuda")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool) -> torch.Tensor:
-    """q [B,H,S,D], k [B,KVH,S,D], v [B,KVH,S,Dv] -> [B,H,S,Dv]: the CUDA
-    kernel."""
+    """q [B,H,Sq,D], k [B,KVH,Skv,D], v [B,KVH,Skv,Dv] -> [B,H,Sq,Dv]: the
+    CUDA kernel."""
     return _fa.flash_attention(q, k, v, causal=causal)
 
 
@@ -45,7 +45,7 @@ def _(q, k, v, causal):
 
 @flash_attention.register_fake
 def _(q, k, v, causal):
-    return _fa.out_like(q, v.shape[-1])       # the kernel's output layout
+    return _fa.out_like(q, v.shape[-1])       # [B,H,Sq,Dv] in q's layout
 
 
 # ---------------------------------------------------------- flash decode

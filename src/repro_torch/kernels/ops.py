@@ -22,7 +22,9 @@ KERNEL_MODULES = {"flash_attention": _fa, "flash_decode": _fd,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q [B,H,S,D], k [B,KVH,S,D], v [B,KVH,S,Dv] -> [B,H,S,Dv]."""
+    """q [B,H,Sq,D], k [B,KVH,Skv,D], v [B,KVH,Skv,Dv] -> [B,H,Sq,Dv];
+    ``causal`` only where Sq == Skv, on every device."""
+    _fa.check_causal(q.shape[2], k.shape[2], causal)
     return library.flash_attention(q, k, v, causal)
 
 

@@ -1,8 +1,10 @@
 """Serving entry point of the port: a real model behind the specialization engine.
 
-Runs real prefill and decode steps of a decoder-only LM, on the card by
-default, driven by the event-driven engine (``repro_torch.sched.engine``):
-the scheduler code of the reference, with service times *measured* from
+Runs real prefill and decode steps of a decoder-only LM (dense, MoE,
+the Mamba2 hybrid or RWKV6; not the encoder-decoder, whose cache needs
+audio frames: ``check_servable``), on the card by default, driven by the
+event-driven engine (``repro_torch.sched.engine``): the scheduler code
+of the reference, with service times *measured* from
 the real calls instead of modelled. The heavy-phase tags and the engine's
 frequency levels come from the calibration artifact
 (``repro_torch/analysis/derived.json``); ``SpecializedPolicy`` confines the
@@ -476,11 +478,27 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def check_servable(cfg) -> None:
+    """Raise for an arch the executor cannot serve: the encoder-decoder's
+    cache is built from audio frames, and the executor hands a model
+    tokens only, as the reference's does (``src/repro/launch/serve.py:75``
+    passes ``{"tokens": ...}``), so whisper runs through its Model API
+    (``repro_torch.models.api.build_model``) instead."""
+    if cfg.enc_dec is not None:
+        raise ValueError(
+            f"{cfg.name} (family {cfg.family!r}) cannot be served: its "
+            "init_cache and prefill need batch['frames'] (the audio "
+            "frontend's output), and the serving executor passes only "
+            "tokens, as the reference's does; run it through "
+            "repro_torch.models.api.build_model with frames")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     arch = get_arch(args.arch)
     cfg = arch.reduced() if args.reduced else arch
+    check_servable(cfg)
     model = build_model(cfg, device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model.init(gen)

@@ -8,9 +8,10 @@ tensors in place of arrays. ``abstract_params()`` and ``input_specs(shape)``
 give parameters and inputs on the ``meta`` device, where nothing is
 allocated: the counterpart of the reference's ``jax.eval_shape`` and
 ``ShapeDtypeStruct``s, which the static analysis traces at full width.
-This port builds the ``dense``, ``vlm`` (early-fusion, token-stream),
-``moe`` (MoE FFN, GQA or MLA attention) and ``hybrid`` (Mamba2 with a
-shared attention block) families; the others raise.
+It builds all six families of the reference: ``dense``, ``vlm``
+(early-fusion, token-stream), ``moe`` (MoE FFN, GQA or MLA attention),
+``hybrid`` (Mamba2 with a shared attention block), ``ssm`` (RWKV6) and
+``audio`` (the whisper encoder-decoder, whose inputs add ``frames``).
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import encdec, hybrid, rwkv6, transformer
+from repro_torch.models.layers import dt
 
 
 @dataclass
@@ -45,14 +47,22 @@ class Model:
         """Meta input tensors for a prefill or decode ``ShapeConfig``-like
         ``shape`` (``seq_len``, ``global_batch``, ``kind``): ``tokens``
         [B,S] for prefill; ``tokens`` [B,1] and ``lengths`` [B] for
-        decode, one new token against a ``seq_len`` cache. The reference's
-        PartitionSpecs have no counterpart until distribution is ported."""
+        decode, one new token against a ``seq_len`` cache; for the audio
+        family also ``frames`` [B, n_frames, d] in the compute dtype. The
+        reference's PartitionSpecs have no counterpart until distribution
+        is ported."""
         B, S = shape.global_batch, shape.seq_len
         meta = dict(dtype=torch.int32, device="meta")
         if shape.kind == "decode":
-            return {"tokens": torch.empty((B, 1), **meta),
-                    "lengths": torch.empty((B,), **meta)}
-        return {"tokens": torch.empty((B, S), **meta)}
+            out = {"tokens": torch.empty((B, 1), **meta),
+                   "lengths": torch.empty((B,), **meta)}
+        else:
+            out = {"tokens": torch.empty((B, S), **meta)}
+        if self.cfg.enc_dec is not None:    # the audio frontend's frames
+            out["frames"] = torch.empty(
+                (B, self.cfg.enc_dec.n_frames, self.cfg.d_model),
+                dtype=dt(self.cfg.compute_dtype), device="meta")
+        return out
 
 
 def _build_lm(cfg: ArchConfig, device: torch.device) -> Model:
@@ -87,20 +97,55 @@ def _build_hybrid(cfg: ArchConfig, device: torch.device) -> Model:
                  decode_step=decode_step)
 
 
-# families of later slices, and the ROADMAP item that ports each
-LATER_SLICES = {
-    "ssm": "RWKV6 (ROADMAP queue 1, item 7)",
-    "audio": "the encoder-decoder (ROADMAP queue 1, item 8)",
-}
+def _build_rwkv(cfg: ArchConfig, device: torch.device) -> Model:
+    """RWKV6: the cache is the stacked layer states, which prefill and
+    decode return anew."""
+    def init_cache(params, batch, B, max_seq):
+        return rwkv6.rwkv6_lm_states(cfg, B, device)
+
+    def prefill(params, batch, cache):
+        logits, st = rwkv6.rwkv6_lm_apply(params, batch["tokens"], cfg,
+                                          cache)
+        return logits[:, -1, :], st
+
+    def decode_step(params, cache, tokens, lengths):
+        logits, st = rwkv6.rwkv6_lm_apply(params, tokens, cfg, cache)
+        return logits[:, 0, :], st
+
+    return Model(cfg=cfg, device=device, family=cfg.family,
+                 init_on=lambda gen, dev: rwkv6.rwkv6_lm_init(gen, cfg, dev),
+                 init_cache=init_cache, prefill=prefill,
+                 decode_step=decode_step)
+
+
+def _build_encdec(cfg: ArchConfig, device: torch.device) -> Model:
+    """The encoder-decoder. As in the reference, ``init_cache`` runs the
+    encoder over ``batch["frames"]``, and ``prefill`` runs it again and
+    the teacher-forced decoder, returning the last position's logits and
+    the cache unfilled: the self-KV fills step by step through
+    ``decode_step``."""
+    def init_cache(params, batch, B, max_seq):
+        return encdec.encdec_init_cache(params, batch["frames"], cfg, B,
+                                        max_seq)
+
+    def prefill(params, batch, cache):
+        enc_out = encdec.encode(params, batch["frames"], cfg)
+        logits = encdec.decode_forward(params, batch["tokens"], enc_out, cfg)
+        return logits[:, -1, :], cache
+
+    def decode_step(params, cache, tokens, lengths):
+        return encdec.encdec_decode_step(params, cache, tokens, lengths, cfg)
+
+    return Model(cfg=cfg, device=device, family=cfg.family,
+                 init_on=lambda gen, dev: encdec.encdec_init(gen, cfg, dev),
+                 init_cache=init_cache, prefill=prefill,
+                 decode_step=decode_step)
+
 
 FAMILIES = {"dense": _build_lm, "vlm": _build_lm, "moe": _build_lm,
-            "hybrid": _build_hybrid}
+            "hybrid": _build_hybrid, "ssm": _build_rwkv,
+            "audio": _build_encdec}
 
 
 def build_model(cfg: ArchConfig, device="cuda") -> Model:
-    if cfg.family not in FAMILIES:
-        later = LATER_SLICES.get(cfg.family, "a later slice")
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; it comes "
-            f"with {later}")
     return FAMILIES[cfg.family](cfg, torch.device(device))

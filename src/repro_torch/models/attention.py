@@ -9,8 +9,9 @@ Each function mirrors its reference counterpart:
   *_decode(params, x, cfg, cache, lengths) -> (y, cache)     (x is [B,1,d])
 
 Prefill attention goes through ``kernels.ops.flash_attention`` for both
-blocks (MLA with q/k head dim nope + rope and its own v head dim), GQA
-decode through ``flash_decode``: the hand-written CUDA kernels for CUDA
+blocks (MLA with q/k head dim nope + rope and its own v head dim; the
+encoder-decoder's encoder and cross-attention without the causal mask,
+``attention``), GQA decode through ``flash_decode``: the hand-written CUDA kernels for CUDA
 tensors, their plain versions for CPU tensors. Unlike the functional
 reference, prefill and decode write the new K/V (or MLA's latent) into the
 cache tensors in place (a copy of a serving cache per step and layer would
@@ -67,20 +68,23 @@ def _qkv(p, x, cfg: ArchConfig, positions):
     return q, k, v
 
 
-def _causal_attention(q, k, v):
-    """[B,S,H,Dqk] q, [B,S,KVH,Dqk] k and [B,S,KVH,Dv] v -> [B,S,H*Dv]
-    through the ``flash_attention`` dispatcher (transpose views, no
-    copies), scores scaled by 1/sqrt(Dqk)."""
+def attention(q, k, v, causal: bool = True):
+    """[B,Sq,H,Dqk] q, [B,Skv,KVH,Dqk] k and [B,Skv,KVH,Dv] v ->
+    [B,Sq,H*Dv] through the ``flash_attention`` dispatcher (transpose
+    views, no copies), scores scaled by 1/sqrt(Dqk); ``causal`` where
+    Sq == Skv (self-attention), not causal for the encoder and for
+    cross-attention."""
     B, S = q.shape[:2]
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=True)
+                            v.transpose(1, 2), causal=causal)
     return o.transpose(1, 2).reshape(B, S, -1)
 
 
-def gqa_forward(p, x, cfg: ArchConfig, positions):
-    """Causal self-attention over the sequence, positions ``0..S-1``."""
+def gqa_forward(p, x, cfg: ArchConfig, positions, causal: bool = True):
+    """Self-attention over the sequence, positions ``0..S-1``: causal, or
+    over every position (the encoder's)."""
     q, k, v = _qkv(p, x, cfg, positions)
-    return dense(p["wo"], _causal_attention(q, k, v), dt(cfg.compute_dtype))
+    return dense(p["wo"], attention(q, k, v, causal), dt(cfg.compute_dtype))
 
 
 def gqa_init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype,
@@ -96,7 +100,7 @@ def gqa_prefill(p, x, cfg: ArchConfig, cache, positions):
     S = x.shape[1]
     cache["k"][:, :S] = k
     cache["v"][:, :S] = v
-    y = dense(p["wo"], _causal_attention(q, k, v), dt(cfg.compute_dtype))
+    y = dense(p["wo"], attention(q, k, v), dt(cfg.compute_dtype))
     return y, cache
 
 
@@ -176,7 +180,7 @@ def _mla_attend(p, x, cfg: ArchConfig, positions, c_kv, k_rope):
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, H, m.rope_head_dim)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    return dense(p["wo"], _causal_attention(q, k, v), cdt)
+    return dense(p["wo"], attention(q, k, v), cdt)
 
 
 def mla_forward(p, x, cfg: ArchConfig, positions):

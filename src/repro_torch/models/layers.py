@@ -47,10 +47,12 @@ class Draw:
     None. A draw of more than two dims is made one trailing matrix at a
     time (an expert's at a time), so the fp32 draw holds one matrix.
 
-    Two more draws, of a vector, for Mamba2's per-head parameters:
+    Two more draws, for Mamba2's and RWKV6's per-head parameters:
     ``uniform=(lo, hi)`` draws U(lo, hi) in fp32, ``linspace=(lo, hi)``
-    takes ``torch.linspace(lo, hi, n)``; either then goes through ``then``
-    (the reference's transform, fp32 to fp32) before it is stored.
+    takes ``torch.linspace(lo, hi, n)`` over all n elements in row-major
+    order (a ``[H, hs]`` linspace is one of H * hs values, reshaped);
+    either then goes through ``then`` (the reference's transform, fp32 to
+    fp32) before it is stored.
     ``dtype`` is the parameter's own dtype, None for the tree's."""
     shape: Tuple[int, ...]
     std: Optional[float] = None
@@ -79,7 +81,8 @@ def _fill(t: torch.Tensor, d: Draw, gen) -> None:
             lo, hi = d.uniform
             v = torch.rand(d.shape, generator=gen, **f32) * (hi - lo) + lo
         else:
-            v = torch.linspace(*d.linspace, d.shape[0], **f32)
+            v = torch.linspace(*d.linspace, t.numel(), **f32).reshape(
+                d.shape)
         t.copy_(d.then(v) if d.then is not None else v)
         return
     if d.std is None:

@@ -32,7 +32,7 @@ from repro_torch.kernels import library, ops
 pallas_keystream_body = _keystream.__wrapped__
 PORTED = ["qwen1.5-0.5b", "codeqwen1.5-7b", "stablelm-12b",
           "starcoder2-15b", "chameleon-34b", "grok-1-314b",
-          "deepseek-v3-671b", "zamba2-2.7b"]
+          "deepseek-v3-671b", "zamba2-2.7b", "rwkv6-3b", "whisper-large-v3"]
 
 
 def _u32_zeros(n, device="cpu"):
@@ -321,6 +321,17 @@ def test_differential_reduced_qwen_prefill_agrees():
     assert d["static_mxu_flops"] > 0
 
 
+def test_differential_reduced_rwkv6_prefill_agrees():
+    """The reference's third differential arch: the static count of the
+    reduced RWKV6 prefill (its chunk loop's products, the decay LoRA, the
+    mixes) against FlopCounterMode's, within the tolerance."""
+    assert calibrate.DIFFERENTIAL_ARCHS == jcal.DIFFERENTIAL_ARCHS
+    d = calibrate._model_differential("rwkv6-3b", calibrate.FLOPS_REL_TOL,
+                                      "cpu")
+    assert d["agrees"] and d["counter_flops"] > 0
+    assert d["static_mxu_flops"] == d["counter_flops"]
+
+
 def test_differential_chacha20_diverges_and_is_known():
     d = differential(lambda k, n: ops.chacha20_keystream(k, n, 1, 64),
                      _u32_zeros(8), _u32_zeros(3), name="chacha20")
@@ -350,7 +361,8 @@ def _digest(path) -> str:
 def test_main_on_cpu_writes_the_port_artifact(tmp_path, monkeypatch):
     """The entry point end to end on the CPU, with the model timelines at
     reduced configs to keep the test short (full width: the next test for
-    qwen1.5-0.5b, chip_smoke.py phase 6 for all eight)."""
+    qwen1.5-0.5b, chip_smoke.py phase 6 for all ten). Every arch is
+    calibrated: nothing is skipped."""
     from repro_torch.analysis import derived
     full = calibrate.model_timelines
     monkeypatch.setattr(calibrate, "model_timelines",
@@ -361,9 +373,7 @@ def test_main_on_cpu_writes_the_port_artifact(tmp_path, monkeypatch):
                            str(out)]) == 0
     data = json.loads(out.read_text())
     assert sorted(data["workloads"]) == sorted(PORTED)
-    assert sorted(data["skipped"]) == sorted(
-        ["whisper-large-v3", "rwkv6-3b"])
-    assert "ROADMAP" in data["skipped"]["rwkv6-3b"]
+    assert data["skipped"] == {}
     for arch, w in data["workloads"].items():
         assert "prefill" in w["tags"], arch
         f0, f1, f2 = w["freq"]["levels_ghz"]

@@ -313,3 +313,89 @@ def test_cuda_hybrid_model_matches_cpu():
     assert launches["flash_decode"] == 4 * groups
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_cross_attention(dtype):
+    """``flash_attention`` with queries and keys of lengths of their own,
+    not causal: whisper's cross-attention (B1 H20 Sq64 Skv1500 D64) and
+    encoder (Sq = Skv = 1500), and ragged lengths on either side of a tile
+    (Skv 1 and 65, Sq 1 and 130), GQA groups 1 to 4 and every head dim
+    class, the model's transpose views; causal at Sq != Skv is refused."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    dt = TDT[dtype]
+    tol = TOLS["flash_attention"][dtype]
+    for B, H, KVH, Sq, Skv, D in [(1, 20, 20, 64, 1500, 64),
+                                  (1, 20, 20, 1500, 1500, 64),
+                                  (2, 8, 2, 33, 100, 128), (1, 4, 4, 130, 1, 16),
+                                  (2, 8, 4, 1, 65, 32), (1, 4, 1, 70, 129, 80),
+                                  (1, 8, 2, 20, 200, 160)]:
+        q = torch.randn(B, Sq, H, D, generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn(B, Skv, KVH, D, generator=gen, device="cuda")
+                .to(dt) for _ in range(2))
+        args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        got = ops.flash_attention(*args, causal=False)
+        assert got.shape == (B, H, Sq, D) and got.dtype == dt
+        torch.testing.assert_close(
+            got.float(), ref.attention_ref(*args, causal=False).float(),
+            rtol=tol, atol=tol)
+    with pytest.raises(ValueError, match="causal attention needs Sq == Skv"):
+        ops.flash_attention(*args, causal=True)
+
+
+@pytest.mark.cuda
+def test_cuda_encdec_model_matches_cpu():
+    """whisper's reduced config at its published head dim 64 (2 heads)
+    over 150 frames, fp32 on the card (the kernels) against the same
+    weights on the CPU (the plain versions): the encoder in
+    ``init_cache`` and ``prefill`` (Sq = Skv = 150, not causal), the
+    decoder's prefill (causal, and cross-attention at Sq 12, Skv 150),
+    then the self-KV filled step by step and 4 greedy steps; logits at
+    1e-4 and equal tokens, each kernel launched once a layer a call."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.api import build_model
+    _needs_card()
+    base = get_arch("whisper-large-v3").reduced()
+    cfg = dataclasses.replace(base, n_heads=2, kv_heads=2, head_dim=64,
+                              enc_dec=dataclasses.replace(base.enc_dec,
+                                                          n_frames=150))
+    cpu, card = build_model(cfg, "cpu"), build_model(cfg, "cuda")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 12), generator=gen)
+    frames = torch.randn(2, 150, cfg.d_model, generator=gen) * 0.1
+
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev)
+                for k, v in tree.items()}
+
+    def run(model, p, dev):
+        batch = {"tokens": toks.to(dev), "frames": frames.to(dev)}
+        cache = model.init_cache(p, batch, 2, 20)
+        logits, cache = model.prefill(p, batch, cache)
+        out, lengths = [logits], torch.zeros((2,), dtype=torch.int32,
+                                             device=dev)
+        for t in range(12):
+            logits, cache = model.decode_step(p, cache, batch["tokens"][
+                :, t:t + 1], lengths)
+            lengths = lengths + 1
+        for _ in range(4):
+            out.append(logits)
+            logits, cache = model.decode_step(
+                p, cache, logits.argmax(-1)[:, None], lengths)
+            lengths = lengths + 1
+        return torch.stack(out + [logits]).cpu()
+
+    ops.reset_launch_counts()
+    got = run(card, to(params, "cuda"), "cuda")
+    launches = ops.launch_counts()
+    want = run(cpu, params, "cpu")
+    L = cfg.n_layers
+    assert launches["flash_attention"] == 4 * L
+    assert launches["flash_decode"] == 2 * L * 16
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got.argmax(-1), want.argmax(-1))

@@ -56,7 +56,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "core.muqss", "core.simulator", "core.workloads",
         "core.perfcounters", "core.experiments", "core.static_analysis",
         "analysis.lint", "examples.identify_hot_code", "models.mamba2",
-        "models.hybrid")} <= \
+        "models.hybrid", "models.rwkv6", "models.encdec")} <= \
         set(res["modules"])
 
 

@@ -204,6 +204,46 @@ def test_kernel_wrappers_take_head_dims_80_and_160(D):
         fa.flash_attention(q96, q96, q96)
 
 
+@pytest.mark.parametrize("B,H,KVH,Sq,Skv,D,dtype", [
+    (1, 4, 4, 12, 24, 16, "float32"),       # whisper reduced: tokens x frames
+    (2, 8, 2, 33, 100, 64, "float32"),
+    (1, 4, 1, 100, 33, 32, "float32"),
+    (1, 4, 4, 64, 150, 64, "bfloat16"),
+])
+def test_flash_attention_plain_cross_matches_reference(B, H, KVH, Sq, Skv, D,
+                                                       dtype):
+    """The plain version at Sq != Skv, not causal (whisper's
+    cross-attention), against the reference model's
+    ``chunked_attention(causal=False)`` (its ``[B, S, H, D]`` layout, its
+    chunking of the queries and of the keys)."""
+    from repro.models.layers import chunked_attention
+    rng = np.random.default_rng(Sq * Skv)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng.standard_normal(s).astype(
+        np.float32), dtype) for s in ((B, H, Sq, D), (B, KVH, Skv, D),
+                                      (B, KVH, Skv, D)))
+    got = ops.flash_attention(tq, tk, tv, causal=False)
+    assert tuple(got.shape) == (B, H, Sq, D)
+    want = chunked_attention(*(a.swapaxes(1, 2) for a in (jq, jk, jv)),
+                             causal=False, chunk_q=32, chunk_kv=32,
+                             compute_dtype=JDT[dtype])
+    _close(got, want.swapaxes(1, 2), TOLS["flash_attention"][dtype])
+
+
+def test_causal_attention_at_unequal_lengths_is_refused():
+    """Causal attention is defined for aligned positions only: the CUDA
+    wrapper and the dispatcher refuse Sq != Skv with ``causal``, on every
+    device; not causal, the dispatcher takes it."""
+    q, kv = torch.zeros((1, 2, 8, 16)), torch.zeros((1, 2, 24, 16))
+    for fn in (fa.flash_attention, ops.flash_attention):
+        with pytest.raises(ValueError, match="causal attention needs Sq == "
+                                             "Skv"):
+            fn(q, kv, kv, causal=True)
+    assert tuple(ops.flash_attention(q, kv, kv, causal=False).shape) == \
+        (1, 2, 8, 16)
+    with pytest.raises(ValueError, match="do not match q"):
+        fa.flash_attention(q, kv, kv[:, :, :5], causal=False)
+
+
 # ------------------------------------------------------------- dispatch
 
 

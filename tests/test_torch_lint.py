@@ -33,8 +33,13 @@ def fresh():
 # decode shared block (trips 9) follows a Mamba2 layer whose last ops are
 # vector and scalar class in the H100 cost model, so its products stand
 # above both neighbours; in the reference the layer ends in a tensor-class
-# region that the shared block's products continue at the same level
-PORT_ONLY_TRIPS = {("zoo/zamba2-2.7b", "decode_step"): {9}}
+# region that the shared block's products continue at the same level.
+# rwkv6-3b's prefill runs its WKV chunk loop over blocks of 32 positions
+# where the reference's chunks of 128 overflow (models/rwkv6.py), so that
+# loop's body folds to 32 layers x 64 blocks = 2,048 trips where the
+# reference has 32 x 16 = 512
+PORT_ONLY_TRIPS = {("zoo/zamba2-2.7b", "decode_step"): {9},
+                   ("zoo/rwkv6-3b", "prefill"): {2048}}
 
 
 def _tls(name, levels_trips_us):
@@ -206,7 +211,9 @@ def test_committed_baseline_equals_a_fresh_run_and_is_ranked(fresh):
     sevs = [f["severity"] for f in base["findings"]]
     assert sevs == sorted(sevs, reverse=True)
     assert lint.BASELINE_PATH.name == "lint_baseline_cuda.json"
-    assert base["skipped"] == sorted(calibrate.ported_archs()[1])
+    assert base["skipped"] == sorted(calibrate.ported_archs()[1]) == []
+    assert {f["workload"] for f in base["findings"]} >= {
+        "zoo/rwkv6-3b", "zoo/whisper-large-v3"}
 
 
 def test_three_untagged_decode_steps(fresh):
@@ -282,6 +289,50 @@ def test_zamba2_folds_to_the_reference_trips(fresh):
     assert trips(ref, "prefill") == {864, 54, 36, 9}
     assert trips(fresh, "decode_step") == {54, 9}
     assert trips(ref, "decode_step") == {54}
+
+
+def test_rwkv6_and_whisper_fold_to_their_trips(fresh):
+    """rwkv6-3b's prefill folds its 32 layers and, in each, its WKV loop
+    of 64 blocks (2,048 prompt tokens in blocks of 32); its decode step
+    only the layers. whisper-large-v3's two stacks of 32 run one after
+    another (prefill: the encoder in init_cache, the cross-K/V of each
+    decoder layer, the encoder again, the decoder), each folding at 32;
+    the reference's 64 and 128 (its attention chunks) cannot appear."""
+    rwkv, whisper = get_arch("rwkv6-3b"), get_arch("whisper-large-v3")
+    P = calibrate.CALIB_PROMPT
+    assert lint.fold_counts(rwkv, "prefill", P) == (32, 64)
+    assert lint.fold_counts(rwkv, "decode_step", P) == (32,)
+    assert lint.fold_counts(whisper, "prefill", P) == (32,)
+    assert lint.fold_runs(whisper, "prefill") == 4
+    assert lint.fold_runs(whisper, "decode_step") == \
+        lint.fold_runs(rwkv, "prefill") == 1
+
+    def trips(arch, ep):
+        return {f["region"]["trips"] for f in fresh["findings"]
+                if f["workload"] == f"zoo/{arch}" and f["entrypoint"] == ep
+                and "region" in f}
+
+    assert trips("rwkv6-3b", "prefill") == {2048, 32}
+    assert trips("rwkv6-3b", "decode_step") == {32}
+    assert trips("whisper-large-v3", "prefill") == {32}
+    assert trips("whisper-large-v3", "decode_step") == {32}
+
+
+@pytest.mark.parametrize("between", [[], ["xk", "xv"]])
+def test_stacks_that_run_one_after_another_each_fold(between):
+    """Two runs of 4 repeats of different bodies, with or without ops
+    between them: each folds to its body at trips 4, what lies around and
+    between keeps trips 1."""
+    keys = ["emb"] + ["E1", "E2"] * 4 + between + ["D1", "D2", "D3"] * 4 \
+        + ["out"]
+    parts = [(p, t) for p, t in lint.fold_parts(keys, (4,), runs=2) if p]
+    assert parts == [(["emb"], 1), (["E1", "E2"], 4)] \
+        + [(between, 1)] * bool(between) \
+        + [(["D1", "D2", "D3"], 4), (["out"], 1)]
+    # one run a level by default: the longest period's
+    assert [(p, t) for p, t in lint.fold_parts(keys, (4,)) if p] == \
+        [(["emb"] + ["E1", "E2"] * 4 + between, 1),
+         (["D1", "D2", "D3"], 4), (["out"], 1)]
 
 
 @pytest.mark.parametrize("pro,epi", [([], []), (["emb"], ["norm", "out"])])

@@ -157,3 +157,45 @@ def test_copied_engine_summary_matches_reference(policy):
     got = run(tsched, TEngine, TPoolModel, TRequest)
     assert want["completed"] == 32
     assert got == want
+
+
+def _argv(arch):
+    return [*CLI[:CLI.index("--arch")], "--arch", arch,
+            *CLI[CLI.index("--arch") + 2:]]
+
+
+@pytest.mark.parametrize("mode", ["engine", "loop", "cluster"])
+def test_rwkv6_serve_cli_completes(mode):
+    """``--arch rwkv6-3b --reduced --device cpu`` serves in every mode,
+    through the Model API alone (the executor stores the states each call
+    returns); the heavy tag comes from the copied ``derived.json``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve",
+         *_argv("rwkv6-3b"), "--mode", mode],
+        capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "[serve] 4/4 requests" in out.stdout
+    assert "heavy tags (derived.json): ['prefill']" in out.stdout
+
+
+def test_rwkv6_engine_tokens_match_reference_greedy():
+    """The engine's greedy tokens for RWKV6 equal the reference model's
+    (prefill, then decode steps carrying the states) on the executor's
+    prompts and bridged weights."""
+    jmodel, jparams, tmodel, tparams = reference_and_port("rwkv6-3b")
+    args = serve.build_parser().parse_args(_argv("rwkv6-3b"))
+    m, ex = serve.run_engine(args, tmodel.cfg, tmodel, tparams)
+    assert m.completed == 4
+    for rid in range(4):
+        _, want = reference_greedy(jmodel, jparams,
+                                   ex.prompts[rid][None, :], 3)
+        assert ex.generated(rid) == want[0].tolist()
+
+
+def test_whisper_is_not_served_and_says_why():
+    """The encoder-decoder's cache needs audio frames and the executor
+    passes tokens only, as the reference's does: serving it raises an
+    error that names the reason, before any model is built."""
+    with pytest.raises(ValueError, match=r"whisper-large-v3 .*frames"):
+        serve.main(_argv("whisper-large-v3"))
