@@ -26,19 +26,24 @@ def _tensor(a, device) -> torch.Tensor:
         device=device, dtype=_TORCH_DTYPES.get(name))
 
 
-def params_from_jax(flat: dict, device) -> dict:
-    """``{"layers/attn/wq/w": array, ...}`` -> nested dict of tensors on
-    ``device``."""
+def unflatten(flat: dict) -> dict:
+    """``/``-joined flat dict -> nested dict, key for key."""
     out: dict = {}
-    for key, arr in flat.items():
+    for key, v in flat.items():
         *path, leaf = key.split("/")
         node = out
         for part in path:
             node = node.setdefault(part, {})
         if leaf in node:
             raise ValueError(f"duplicate parameter key {key!r}")
-        node[leaf] = _tensor(arr, device)
+        node[leaf] = v
     return out
+
+
+def params_from_jax(flat: dict, device) -> dict:
+    """``{"layers/attn/wq/w": array, ...}`` -> nested dict of tensors on
+    ``device``."""
+    return unflatten({k: _tensor(a, device) for k, a in flat.items()})
 
 
 def flatten(params: dict, prefix: str = "") -> dict:

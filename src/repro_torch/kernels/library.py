@@ -9,6 +9,12 @@ device of the tensors it is given:
   * fake — allocates the output for ``meta`` and fake tensors, so a model
     traced on the meta device reaches each kernel as one op.
 
+``flash_attention`` also has an autograd registration, on every device:
+its backward is plain PyTorch (``kernels.attention_grad``), as the TPU
+kernel has none; training runs the kernel forward on the card and that
+backward. ``flash_decode`` and ``chacha20_keystream`` have no training
+caller and no autograd.
+
 Nothing here catches a failure and falls back. Because each kernel is one
 op, a ``TorchDispatchMode`` (``repro_torch.analysis.regions.segment``) sees
 it as one leaf; :data:`KERNEL_FLOPS` holds each op's static flop count for
@@ -20,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import attention_grad
 from repro_torch.kernels import chacha20 as _cc
 from repro_torch.kernels import decode_attention as _fd
 from repro_torch.kernels import flash_attention as _fa
@@ -46,6 +53,25 @@ def _(q, k, v, causal):
 @flash_attention.register_fake
 def _(q, k, v, causal):
     return _fa.out_like(q, v.shape[-1])       # [B,H,Sq,Dv] in q's layout
+
+
+def _fa_setup_context(ctx, inputs, output):
+    q, k, v, causal = inputs
+    ctx.save_for_backward(q, k, v)
+    ctx.causal = causal
+
+
+def _fa_backward(ctx, do):
+    q, k, v = ctx.saved_tensors
+    # a named range, so that a profile can tell the backward's share
+    with torch.profiler.record_function("flash_attention backward"):
+        dq, dk, dv = attention_grad.attention_grad(q, k, v, do,
+                                                   causal=ctx.causal)
+    return dq, dk, dv, None
+
+
+flash_attention.register_autograd(_fa_backward,
+                                  setup_context=_fa_setup_context)
 
 
 # ---------------------------------------------------------- flash decode

@@ -73,9 +73,15 @@ def chacha20_keystream_ref(key: torch.Tensor, nonce: torch.Tensor,
 # ------------------------------------------------------- attention
 
 
+def math_dtype(t: torch.Tensor) -> torch.dtype:
+    """The dtype attention's plain math runs in: fp32, or fp64 for fp64."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def attention_ref(q, k, v, *, causal: bool, scale=None) -> torch.Tensor:
     """q [B,H,Sq,D], k [B,KVH,Skv,D], v [B,KVH,Skv,Dv] -> [B,H,Sq,Dv]
-    (fp32 math), scores scaled by 1/sqrt(D) unless ``scale`` is given.
+    (fp32 math; fp64 for fp64 inputs, so that ``gradcheck`` can hold the
+    backward to it), scores scaled by 1/sqrt(D) unless ``scale`` is given.
 
     The causal mask is aligned to the bottom right (query i sees keys
     ``<= i + Skv - Sq``), as in the reference."""
@@ -83,14 +89,15 @@ def attention_ref(q, k, v, *, causal: bool, scale=None) -> torch.Tensor:
     KVH, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // KVH
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    qf = q.float().reshape(B, KVH, G, Sq, D)
-    s = torch.einsum("bkgsd,bktd->bkgst", qf, k.float()) * scale
+    acc = math_dtype(q)
+    qf = q.to(acc).reshape(B, KVH, G, Sq, D)
+    s = torch.einsum("bkgsd,bktd->bkgst", qf, k.to(acc)) * scale
     if causal:
         mask = torch.ones((Sq, Skv), dtype=torch.bool,
                           device=q.device).tril(Skv - Sq)
         s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
+    o = torch.einsum("bkgst,bktd->bkgsd", p, v.to(acc))
     return o.reshape(B, H, Sq, Dv).to(q.dtype)
 
 

@@ -1,7 +1,7 @@
 """Model API of the port: the LM family behind the reference's ``Model``
 interface (``repro.models.api``).
 
-``build_model(cfg, device)`` returns a ``Model`` whose ``init``,
+``build_model(cfg, device)`` returns a ``Model`` whose ``init``, ``loss``,
 ``init_cache``, ``prefill`` and ``decode_step`` take the same arguments as
 the reference's, with a ``torch.Generator`` in place of a JAX key and
 tensors in place of arrays. ``abstract_params()`` and ``input_specs(shape)``
@@ -12,6 +12,11 @@ It builds all six families of the reference: ``dense``, ``vlm``
 (early-fusion, token-stream), ``moe`` (MoE FFN, GQA or MLA attention),
 ``hybrid`` (Mamba2 with a shared attention block), ``ssm`` (RWKV6) and
 ``audio`` (the whisper encoder-decoder, whose inputs add ``frames``).
+``loss(params, batch)`` gives ``(loss, metrics)`` from ``tokens`` and
+``targets`` (and ``frames``), with the reference's ``remat="full"``:
+``transformer.lm_loss`` for the LM families, ``_plain_ce`` of the full
+logits for the hybrid and RWKV6, ``encdec.encdec_loss`` for the audio
+family.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import encdec, hybrid, rwkv6, transformer
-from repro_torch.models.layers import dt
+from repro_torch.models.layers import dt, token_ce
 
 
 @dataclass
@@ -31,6 +36,7 @@ class Model:
     device: torch.device
     family: str
     init_on: Callable                # (gen, device) -> params
+    loss: Callable                   # (params, batch) -> (loss, metrics)
     init_cache: Callable             # (params, batch, B, max_seq) -> cache
     prefill: Callable                # (params, batch, cache) -> (logits, cache)
     decode_step: Callable            # (params, cache, tokens, lengths) -> ...
@@ -65,7 +71,16 @@ class Model:
         return out
 
 
+def _plain_ce(logits, targets):
+    ce = token_ce(logits, targets).mean()
+    return ce, {"ce": ce}
+
+
 def _build_lm(cfg: ArchConfig, device: torch.device) -> Model:
+    def loss(params, batch):
+        return transformer.lm_loss(params, batch["tokens"], batch["targets"],
+                                   cfg, remat="full")
+
     def init_cache(params, batch, B, max_seq):
         return transformer.lm_init_cache(cfg, B, max_seq, device)
 
@@ -77,11 +92,16 @@ def _build_lm(cfg: ArchConfig, device: torch.device) -> Model:
 
     return Model(cfg=cfg, device=device, family=cfg.family,
                  init_on=lambda gen, dev: transformer.lm_init(gen, cfg, dev),
-                 init_cache=init_cache, prefill=prefill,
+                 loss=loss, init_cache=init_cache, prefill=prefill,
                  decode_step=decode_step)
 
 
 def _build_hybrid(cfg: ArchConfig, device: torch.device) -> Model:
+    def loss(params, batch):
+        return _plain_ce(hybrid.hybrid_forward(params, batch["tokens"], cfg,
+                                               remat="full"),
+                         batch["targets"])
+
     def init_cache(params, batch, B, max_seq):
         return hybrid.hybrid_states(cfg, B, max_seq, device)
 
@@ -93,13 +113,18 @@ def _build_hybrid(cfg: ArchConfig, device: torch.device) -> Model:
 
     return Model(cfg=cfg, device=device, family=cfg.family,
                  init_on=lambda gen, dev: hybrid.hybrid_init(gen, cfg, dev),
-                 init_cache=init_cache, prefill=prefill,
+                 loss=loss, init_cache=init_cache, prefill=prefill,
                  decode_step=decode_step)
 
 
 def _build_rwkv(cfg: ArchConfig, device: torch.device) -> Model:
     """RWKV6: the cache is the stacked layer states, which prefill and
     decode return anew."""
+    def loss(params, batch):
+        logits, _ = rwkv6.rwkv6_lm_apply(params, batch["tokens"], cfg,
+                                         remat="full")
+        return _plain_ce(logits, batch["targets"])
+
     def init_cache(params, batch, B, max_seq):
         return rwkv6.rwkv6_lm_states(cfg, B, device)
 
@@ -114,7 +139,7 @@ def _build_rwkv(cfg: ArchConfig, device: torch.device) -> Model:
 
     return Model(cfg=cfg, device=device, family=cfg.family,
                  init_on=lambda gen, dev: rwkv6.rwkv6_lm_init(gen, cfg, dev),
-                 init_cache=init_cache, prefill=prefill,
+                 loss=loss, init_cache=init_cache, prefill=prefill,
                  decode_step=decode_step)
 
 
@@ -124,6 +149,10 @@ def _build_encdec(cfg: ArchConfig, device: torch.device) -> Model:
     the teacher-forced decoder, returning the last position's logits and
     the cache unfilled: the self-KV fills step by step through
     ``decode_step``."""
+    def loss(params, batch):
+        return encdec.encdec_loss(params, batch["frames"], batch["tokens"],
+                                  batch["targets"], cfg, remat="full")
+
     def init_cache(params, batch, B, max_seq):
         return encdec.encdec_init_cache(params, batch["frames"], cfg, B,
                                         max_seq)
@@ -138,7 +167,7 @@ def _build_encdec(cfg: ArchConfig, device: torch.device) -> Model:
 
     return Model(cfg=cfg, device=device, family=cfg.family,
                  init_on=lambda gen, dev: encdec.encdec_init(gen, cfg, dev),
-                 init_cache=init_cache, prefill=prefill,
+                 loss=loss, init_cache=init_cache, prefill=prefill,
                  decode_step=decode_step)
 
 

@@ -18,8 +18,10 @@ over all T frames' cross-K/V with ``flash_decode`` at lengths T.
 
 The cache is ``{"cross": {"xk", "xv"}}`` [L, B, T, KVH, hd], computed once
 from the encoder's output, and ``{"self": {"k", "v"}}`` [L, B, Smax, KVH,
-hd], which decode writes in place and returns. ``encdec_loss`` comes with
-the training slice of the port (ROADMAP).
+hd], which decode writes in place and returns. ``encdec_loss`` is the
+teacher-forced decoder's mean cross-entropy; ``encode`` and
+``decode_forward`` take a ``remat`` policy, applied per layer as the
+reference does.
 """
 from __future__ import annotations
 
@@ -30,9 +32,9 @@ from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     apply_norm, dense, dt, init_dense, init_embedding, init_mlp, init_norm,
-    materialize, mlp, unembed,
+    materialize, mlp, remat_fn, token_ce, unembed,
 )
-from repro_torch.models.transformer import _embed, layer_slices
+from repro_torch.models.transformer import _embed, _positions, layer_slices
 
 
 def _xattn_init(cfg: ArchConfig) -> dict:
@@ -74,18 +76,23 @@ def _mlp_residual(p_l, x, norm: str, cfg: ArchConfig):
     return x + mlp(p_l["mlp"], h, cfg.act, cfg.glu, dt(cfg.compute_dtype))
 
 
-def encode(params, frames, cfg: ArchConfig):
+def encode(params, frames, cfg: ArchConfig, remat: str = "none"):
     """frames [B, T, d] (the stubbed frontend's output) -> [B, T, d]: non-
     causal self-attention over every frame, layer by layer."""
     B, T, _ = frames.shape
     x = frames.to(dt(cfg.compute_dtype))
     positions = torch.arange(T, device=frames.device).expand(B, T)
-    for p_l in layer_slices(params["enc_layers"],
-                            cfg.enc_dec.n_encoder_layers):
+
+    def layer(x, p_l):
         h = apply_norm(p_l["norm1"], x, cfg.norm)
         x = x + attn.gqa_forward(p_l["attn"], h, cfg, positions,
                                  causal=False)
-        x = _mlp_residual(p_l, x, "norm2", cfg)
+        return _mlp_residual(p_l, x, "norm2", cfg)
+
+    layer = remat_fn(layer, "none" if remat == "none" else "full")
+    for p_l in layer_slices(params["enc_layers"],
+                            cfg.enc_dec.n_encoder_layers):
+        x = layer(x, p_l)
     return apply_norm(params["enc_norm"], x, cfg.norm)
 
 
@@ -110,21 +117,36 @@ def _enc_kv(p, enc_out, cfg: ArchConfig):
             dense(p["wv"], enc_out, cdt).reshape(shape))
 
 
-def decode_forward(params, tokens, enc_out, cfg: ArchConfig):
+def decode_forward(params, tokens, enc_out, cfg: ArchConfig,
+                   remat: str = "none"):
     """Teacher-forced decoder: tokens [B,S] + enc_out -> logits [B,S,V]
     fp32."""
-    B, S = tokens.shape
     x = _embed(params, tokens, cfg)
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
-    for p_l in layer_slices(params["dec_layers"], cfg.n_layers):
+    positions = _positions(tokens)
+
+    def layer(x, p_l):
         h = apply_norm(p_l["norm1"], x, cfg.norm)
         x = x + attn.gqa_forward(p_l["self"], h, cfg, positions)
         h = apply_norm(p_l["norm2"], x, cfg.norm)
         x = x + _cross_fwd(p_l["cross"], h,
                            _enc_kv(p_l["cross"], enc_out, cfg), cfg)
-        x = _mlp_residual(p_l, x, "norm3", cfg)
+        return _mlp_residual(p_l, x, "norm3", cfg)
+
+    layer = remat_fn(layer, "none" if remat == "none" else "full")
+    for p_l in layer_slices(params["dec_layers"], cfg.n_layers):
+        x = layer(x, p_l)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return unembed(x, params["embed"], dt(cfg.compute_dtype))   # tied head
+
+
+def encdec_loss(params, frames, tokens, targets, cfg: ArchConfig,
+                remat: str = "none"):
+    """Mean cross-entropy of the teacher-forced decoder over the encoded
+    frames: (loss, {"ce": loss})."""
+    enc_out = encode(params, frames, cfg, remat)
+    logits = decode_forward(params, tokens, enc_out, cfg, remat)
+    ce = token_ce(logits, targets).mean()
+    return ce, {"ce": ce}
 
 
 def encdec_init_cache(params, frames, cfg: ArchConfig, batch: int,

@@ -26,13 +26,13 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     apply_norm, dt, init_embedding, init_mlp, init_norm, materialize, mlp,
-    unembed,
+    remat_fn, unembed,
 )
 from repro_torch.models.mamba2 import (
     mamba2_decode, mamba2_forward, mamba2_init, mamba2_init_state,
     mamba2_prefill,
 )
-from repro_torch.models.transformer import _embed, layer_slices
+from repro_torch.models.transformer import _embed, _positions, layer_slices
 
 
 def _groups(cfg: ArchConfig):
@@ -95,19 +95,25 @@ def _write(state: dict, new: dict) -> None:
         state[k].copy_(v)
 
 
-def hybrid_forward(params, tokens, cfg: ArchConfig):
-    """tokens [B,S] -> full logits [B,S,V] fp32."""
+def hybrid_forward(params, tokens, cfg: ArchConfig, remat: str = "none"):
+    """tokens [B,S] -> full logits [B,S,V] fp32. With ``remat`` other than
+    "none", each group (its Mamba2 layers and the shared block) runs under
+    checkpoint, as the reference checkpoints its group scan's body."""
     ng, k = _groups(cfg)
-    B, S = tokens.shape
     x = _embed(params, tokens, cfg)
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    positions = _positions(tokens)
     layers = layer_slices(params["layers"], cfg.n_layers)
-    for g in range(ng):
-        for p_l in layers[g * k:(g + 1) * k]:
+
+    def group(x, p_g):
+        for p_l in p_g:
             h = apply_norm(p_l["norm"], x, cfg.norm)
             y, _ = mamba2_forward(p_l["m"], h, cfg)
             x = x + y.to(x.dtype)
-        x = _shared_block_fwd(params["shared"], x, cfg, positions)
+        return _shared_block_fwd(params["shared"], x, cfg, positions)
+
+    group = remat_fn(group, "none" if remat == "none" else "full")
+    for g in range(ng):
+        x = group(x, layers[g * k:(g + 1) * k])
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return unembed(x, params["unembed"], dt(cfg.compute_dtype))
 

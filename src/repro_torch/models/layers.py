@@ -13,6 +13,7 @@ plain forms of attention in the model's ``[B, S, H, D]`` layout.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 from dataclasses import dataclass
@@ -20,6 +21,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 # ---------------------------------------------------------------- dtypes
 
@@ -29,6 +31,42 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 def dt(name: str) -> torch.dtype:
     return DTYPES[name]
+
+
+# ----------------------------------------------------------------- remat
+#
+# The reference's remat policies (``repro.models.transformer.
+# REMAT_POLICIES``) as ``torch.utils.checkpoint`` (non-reentrant):
+# "none" saves every activation; "full" (``nothing_saveable``) saves a
+# block's inputs only and runs its forward again in the backward; "dots"
+# (``checkpoint_dots``, which saves the results of ``dot_general``s) saves
+# the results of the matrix products (``mm``, ``bmm``, ``addmm``,
+# ``baddbmm``: einsums and ``@`` land on them) and of ``flash_attention``,
+# the port's counterpart of the reference's attention einsums, through
+# selective checkpointing, and recomputes the rest (norms, activations,
+# softmax, casts).
+
+_DOTS = {"aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm",
+         "repro_torch::flash_attention"}
+
+
+def _save_dots(ctx, func, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if func.name().split(".")[0]
+            in _DOTS else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_fn(fn: Callable, remat: str) -> Callable:
+    """``fn`` under the remat policy ``remat``: "none", "dots" or "full"."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            _ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                _ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat {remat!r}: one of none, dots, full")
 
 
 # ---------------------------------------------------------------- init
@@ -273,6 +311,14 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
 
 # ------------------------------------------------------------- embeddings
 
+
+def token_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Each position's cross-entropy, logsumexp(logits) - logits[target]:
+    logits [..., V] fp32, targets [...] integer ids -> [...]."""
+    gold = logits.gather(-1, targets[..., None].long())[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
 def init_embedding(vocab: int, d: int) -> Draw:
     return Draw((vocab, d), std=0.02)
 
@@ -287,9 +333,31 @@ def unembed(x: torch.Tensor, emb_or_w: torch.Tensor,
     dtype goes straight to an fp32-output matmul (``out_dtype``), so the
     [V, d] table is read in its own width and never widened; the CPU has
     no such matmul and widens both operands, which gives the same sums.
+    That matmul has no derivative of its own: ``_Fp32Logits`` gives it one
+    (without grad it runs only its forward, the same single product).
     """
     xc, wc = x.to(compute_dtype), emb_or_w.to(compute_dtype)
     if xc.dtype == torch.float32 or xc.device.type == "cpu":
         return xc.float() @ wc.float().T
-    y = torch.mm(xc.reshape(-1, xc.shape[-1]), wc.T, out_dtype=torch.float32)
+    x2 = xc.reshape(-1, xc.shape[-1])
+    y = _Fp32Logits.apply(x2, wc)
     return y.reshape(*xc.shape[:-1], wc.shape[0])
+
+
+class _Fp32Logits(torch.autograd.Function):
+    """x [T,d] @ w [V,d]^T -> fp32 logits through the fp32-output matmul,
+    which has no derivative of its own. The backward rounds the logits'
+    gradient to the operands' dtype (as a product's backward in that dtype
+    does) and takes both products with fp32 accumulation."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w.T, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.to(x.dtype)
+        return (torch.mm(g, w, out_dtype=torch.float32).to(x.dtype),
+                torch.mm(g.T, x, out_dtype=torch.float32).to(w.dtype))

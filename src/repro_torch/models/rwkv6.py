@@ -44,8 +44,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import (
-    Draw, apply_norm, dt, init_embedding, init_norm, materialize, rmsnorm,
-    unembed,
+    Draw, apply_norm, dt, init_embedding, init_norm, materialize, remat_fn,
+    rmsnorm, unembed,
 )
 from repro_torch.models.mamba2 import _chunk_len
 from repro_torch.models.transformer import _embed, layer_slices
@@ -251,17 +251,20 @@ def rwkv6_lm_states(cfg: ArchConfig, batch: int, device) -> dict:
             for k, v in one.items()}
 
 
-def rwkv6_lm_apply(params, tokens, cfg: ArchConfig, states=None):
+def rwkv6_lm_apply(params, tokens, cfg: ArchConfig, states=None,
+                   remat: str = "none"):
     """tokens [B,S] -> (logits [B,S,V] fp32, new stacked states). The
-    states passed in are read, not written."""
+    states passed in are read, not written. With ``remat`` other than
+    "none", each layer runs under checkpoint, as in the reference."""
     B, S = tokens.shape
     x = apply_norm(params["ln0"], _embed(params, tokens, cfg), "layernorm")
     if states is None:
         states = rwkv6_lm_states(cfg, B, tokens.device)
+    block = remat_fn(rwkv6_block, "none" if remat == "none" else "full")
     new = []
     for p_l, st_l in zip(layer_slices(params["layers"], cfg.n_layers),
                          layer_slices(states, cfg.n_layers)):
-        x, st = rwkv6_block(p_l, x, cfg, st_l)
+        x, st = block(p_l, x, cfg, st_l)
         new.append(st)
     x = apply_norm(params["final_norm"], x, "layernorm")
     return (unembed(x, params["unembed"], dt(cfg.compute_dtype)),

@@ -13,8 +13,14 @@ rope]`` for MLA.
 and fills it layer by layer (and expert by expert) from the generator, so
 a full-width init needs no more memory than the parameters themselves.
 
-``lm_backbone``, ``lm_loss`` and the MTP head (``mtp_init`` /
-``mtp_loss``) come with the training slice of the port (ROADMAP).
+The training half: ``lm_backbone`` runs the layers under a remat policy
+(``layers.remat_fn``: per-layer ``torch.utils.checkpoint``), summing the MoE
+aux losses over the layers; ``lm_loss`` takes the cross-entropy in
+sequence chunks of ``loss_chunk``, each under checkpoint, so [B, S, V]
+logits never live at once (at a 152k vocab they would dominate memory);
+and deepseek-v3's multi-token-prediction head, ``mtp_init`` /
+``mtp_loss``. Attention goes through ``flash_attention`` forward and its
+registered backward (``kernels.library``).
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     apply_norm, dt, init_embedding, init_mlp, init_norm, materialize, mlp,
-    unembed,
+    remat_fn, token_ce, unembed,
 )
 from repro_torch.models.moe import moe_block, moe_init
 
@@ -46,11 +52,20 @@ def _layer_init(cfg: ArchConfig) -> dict:
 
 
 def layer_slices(layers: dict, n_layers: int) -> list:
-    """Stacked layer params (or cache) -> one dict of views per layer."""
+    """Stacked layer params (or cache) -> one dict of views per layer,
+    through one ``unbind`` a tensor: in training its backward stacks the L
+    grads once, where L ``select``s would each write a zero-filled grad of
+    the whole stack. A cache's views take in-place writes (nothing there
+    requires grad), and views cost nothing in the analysis's op stream."""
+    def unbind(tree):
+        return {k: unbind(v) if isinstance(v, dict) else v.unbind(0)
+                for k, v in tree.items()}
+
     def pick(tree, i):
         return {k: pick(v, i) if isinstance(v, dict) else v[i]
                 for k, v in tree.items()}
-    return [pick(layers, i) for i in range(n_layers)]
+    parts = unbind(layers)
+    return [pick(parts, i) for i in range(n_layers)]
 
 
 def lm_init(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
@@ -70,12 +85,15 @@ def lm_init(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
 # --------------------------------------------------------------- forward
 
 
-def _ffn_residual(p_l, x, cfg: ArchConfig):
-    h = apply_norm(p_l["norm2"], x, cfg.norm)
+def _ffn(p_l, h, cfg: ArchConfig):
+    """The FFN of one layer on its normed input: (y, MoE aux or None)."""
     if cfg.moe is not None:
-        y, _ = moe_block(p_l["moe"], h, cfg)
-    else:
-        y = mlp(p_l["mlp"], h, cfg.act, cfg.glu, dt(cfg.compute_dtype))
+        return moe_block(p_l["moe"], h, cfg)
+    return mlp(p_l["mlp"], h, cfg.act, cfg.glu, dt(cfg.compute_dtype)), None
+
+
+def _ffn_residual(p_l, x, cfg: ArchConfig):
+    y, _ = _ffn(p_l, apply_norm(p_l["norm2"], x, cfg.norm), cfg)
     return x + y
 
 
@@ -87,19 +105,81 @@ def _embed(params, tokens, cfg: ArchConfig):
     return params["embed"][tokens].to(dt(cfg.compute_dtype))
 
 
-def lm_forward(params, tokens, cfg: ArchConfig):
-    """tokens [B,S] -> full logits [B,S,V] fp32 (small shapes)."""
+def _positions(tokens):
     B, S = tokens.shape
-    x = _embed(params, tokens, cfg)
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    return torch.arange(S, device=tokens.device).expand(B, S)
+
+
+def _layer_fwd(p_l, x, positions, cfg: ArchConfig):
+    """One layer over the whole sequence: (x, MoE aux or None)."""
     forward = attn.mla_forward if cfg.attention == "mla" \
         else attn.gqa_forward
+    h = apply_norm(p_l["norm1"], x, cfg.norm)
+    x = x + forward(p_l["attn"], h, cfg, positions)
+    y, aux = _ffn(p_l, apply_norm(p_l["norm2"], x, cfg.norm), cfg)
+    return x + y, aux
+
+
+def _zero_aux(device) -> dict:
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in ("lb_loss", "z_loss", "drop_frac")}
+
+
+def lm_backbone(params, tokens, cfg: ArchConfig, remat: str = "none",
+                positions=None):
+    """tokens [B,S] -> (hidden [B,S,d] after the final norm, aux: the MoE
+    losses and drop fraction summed over the layers, zeros without MoE).
+    ``remat`` ("none", "dots" or "full") applies per layer."""
+    x = _embed(params, tokens, cfg)
+    if positions is None:
+        positions = _positions(tokens)
+    aux = _zero_aux(tokens.device)
+    layer = remat_fn(_layer_fwd, remat)
     for p_l in layer_slices(params["layers"], cfg.n_layers):
-        h = apply_norm(p_l["norm1"], x, cfg.norm)
-        x = _ffn_residual(p_l, x + forward(p_l["attn"], h, cfg, positions),
-                          cfg)
-    x = apply_norm(params["final_norm"], x, cfg.norm)
+        x, aux_l = layer(p_l, x, positions, cfg)
+        if aux_l is not None:
+            aux = {k: aux[k] + aux_l[k] for k in aux}
+    return apply_norm(params["final_norm"], x, cfg.norm), aux
+
+
+def lm_forward(params, tokens, cfg: ArchConfig, remat: str = "none"):
+    """tokens [B,S] -> full logits [B,S,V] fp32 (small shapes). The
+    reference also returns the aux; ``lm_backbone`` gives it here."""
+    x, _ = lm_backbone(params, tokens, cfg, remat)
     return unembed(x, _out_weight(params, cfg), dt(cfg.compute_dtype))
+
+
+def _ce_sum(x, w, targets, cdt):
+    """Summed cross-entropy of the logits of x [B,c,d] against targets."""
+    return token_ce(unembed(x, w, cdt), targets).sum()
+
+
+def lm_loss(params, tokens, targets, cfg: ArchConfig, remat: str = "full",
+            loss_chunk: int = 512, lb_coef: float = 0.01,
+            z_coef: float = 1e-4):
+    """Sequence-chunked cross-entropy: chunks of ``min(loss_chunk, S)``
+    positions (which must divide S, as the reference's reshape needs),
+    each under checkpoint, so logits never live at [B,S,V]. The MoE aux
+    losses are added with ``lb_coef`` and ``z_coef`` over the layers.
+    Returns (loss, metrics)."""
+    B, S = tokens.shape
+    x, aux = lm_backbone(params, tokens, cfg, remat)
+    w = _out_weight(params, cfg)
+    c = min(loss_chunk, S)
+    if S % c:
+        raise ValueError(f"lm_loss: loss_chunk {c} does not divide the "
+                         f"sequence length {S}")
+    cdt = dt(cfg.compute_dtype)
+    ce_sum = remat_fn(_ce_sum, "full")
+    tot = sum(ce_sum(x[:, i:i + c], w, targets[:, i:i + c], cdt)
+              for i in range(0, S, c))
+    ce = tot / (B * S)
+    L = cfg.n_layers
+    loss = ce
+    if cfg.moe is not None:
+        loss = loss + lb_coef * aux["lb_loss"] / L \
+            + z_coef * aux["z_loss"] / L
+    return loss, {"ce": ce, **{k: v / L for k, v in aux.items()}}
 
 
 # ----------------------------------------------------------------- cache
@@ -144,3 +224,28 @@ def lm_decode_step(params, cache, tokens, lengths, cfg: ArchConfig):
     x = apply_norm(params["final_norm"], x, cfg.norm)
     logits = unembed(x, _out_weight(params, cfg), dt(cfg.compute_dtype))
     return logits[:, 0, :], cache
+
+
+# ------------------------------------------------- optional: MTP head
+# deepseek-v3 trains with a multi-token-prediction module: one extra
+# transformer layer predicting token t+2 from [h_t ; emb(t+1)].
+
+
+def mtp_init(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
+    """The MTP head's parameters: ``proj`` [2d, d] and one layer."""
+    return materialize({"proj": init_embedding(2 * cfg.d_model, cfg.d_model),
+                        "layer": _layer_init(cfg)}, gen,
+                       dt(cfg.param_dtype), device)
+
+
+def mtp_loss(params, mtp_params, tokens, targets2, cfg: ArchConfig,
+             remat: str = "none"):
+    """targets2 = tokens shifted by 2. Returns the MTP head's mean CE."""
+    cdt = dt(cfg.compute_dtype)
+    h, _ = lm_backbone(params, tokens, cfg, remat)
+    nxt = _embed(params, torch.roll(tokens, -1, dims=1), cfg)
+    z = torch.cat([h.to(cdt), nxt], dim=-1)
+    x = z @ mtp_params["proj"].to(cdt)
+    x, _ = _layer_fwd(mtp_params["layer"], x, _positions(tokens), cfg)
+    return token_ce(unembed(x, _out_weight(params, cfg), cdt),
+                    targets2).mean()

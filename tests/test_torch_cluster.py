@@ -37,6 +37,28 @@ def models():
     return reference_and_port("qwen1.5-0.5b")
 
 
+class FixedClock:
+    """A stand-in for the ``time`` module that ``serve`` reads, whose
+    ``perf_counter`` advances ``step_ms`` at every reading. The executor
+    reads it on each side of a model call, so every prefill and decode
+    call is charged ``step_ms`` of engine time, however busy the host is:
+    which storm events meet which attempt, and whether a dropped request
+    is retried or expires, no longer depend on the host's load."""
+
+    def __init__(self, step_ms: float):
+        self.now, self.step = 0.0, step_ms / 1e3
+
+    def perf_counter(self) -> float:
+        self.now += self.step
+        return self.now
+
+
+@pytest.fixture
+def fixed_clock(monkeypatch):
+    """Engine service times from a 5 ms fixed clock, for this test only."""
+    monkeypatch.setattr(serve, "time", FixedClock(5.0))
+
+
 def finishing_executor(executors, rid):
     """The executor whose attempt of ``rid`` completed: the highest
     attempt any executor finished (an earlier one was dropped or lost)."""
@@ -70,7 +92,8 @@ def test_cluster_cli_completes():
     assert "[serve] oracle violations=0" in out.stdout
 
 
-def test_cluster_under_crash_conserves_and_matches_reference(models):
+def test_cluster_under_crash_conserves_and_matches_reference(models,
+                                                           fixed_clock):
     jmodel, jparams, tmodel, tparams = models
     args = serve.build_parser().parse_args(CRASH)
     m, executors, oracle = serve.run_cluster(args, tmodel.cfg, tmodel,
@@ -91,23 +114,11 @@ def test_cluster_under_crash_conserves_and_matches_reference(models):
 
 
 def test_cluster_under_storm_retries_and_matches_reference(models,
-                                                           monkeypatch):
+                                                           fixed_clock):
     """Requests retried after a dropped response finish on a later
     attempt; their tokens are read from the executor that finished that
     attempt, and no executor keeps an earlier attempt's state."""
     jmodel, jparams, tmodel, tparams = models
-    # the default 50 ms deadline window expires a dropped request instead
-    # of retrying it once the measured service times of a busy host pass
-    # 25 ms (the retry backoff); a 10 s window retries it on any host
-    plain = serve.requests
-
-    def requests(args):
-        reqs = plain(args)
-        for r in reqs:
-            r.deadline_window_ms = 10_000.0
-        return reqs
-
-    monkeypatch.setattr(serve, "requests", requests)
     args = serve.build_parser().parse_args(STORM)
     m, executors, oracle = serve.run_cluster(args, tmodel.cfg, tmodel,
                                              tparams)
@@ -147,7 +158,8 @@ def test_a_later_attempt_frees_the_earlier_one_on_its_peers(models):
     assert not b.state and not b.live
 
 
-def test_hybrid_cluster_under_crash_conserves_and_matches_reference():
+def test_hybrid_cluster_under_crash_conserves_and_matches_reference(
+        fixed_clock):
     """zamba2's reduced config through the cluster under the crash plan:
     exact conservation, no oracle violation, every completed request's
     tokens equal the reference's, and no executor keeps a state tree
@@ -199,7 +211,7 @@ def test_workload_in_engine_mode_matches_reference(models):
     assert_tokens_match_reference(jmodel, jparams, {"engine": ex}, rids, 4)
 
 
-def test_workload_in_cluster_mode_conserves(models):
+def test_workload_in_cluster_mode_conserves(models, fixed_clock):
     _, _, tmodel, tparams = models
     args = serve.build_parser().parse_args(
         [*SMALL, "--mode", "cluster", "--requests", "8",

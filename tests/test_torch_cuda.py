@@ -399,3 +399,65 @@ def test_cuda_encdec_model_matches_cpu():
     assert launches["flash_decode"] == 2 * L * 16
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_flash_attention_backward_matches_autograd_of_plain(dtype):
+    """The registered backward behind the kernel's forward against
+    autograd through the plain version, on the card: causal GQA, MLA's
+    head dims, head dim 80 and cross-attention (Sq != Skv), with the
+    model's transpose views. fp32 at 1e-4 of each grad's scale; bf16 at
+    2e-2 (the backward's math is fp32 in both; the forward differs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dt = TDT[dtype]
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}[dtype]
+    for B, H, KVH, Sq, Skv, D, Dv, causal in [
+            (2, 16, 16, 256, 256, 64, 64, True),
+            (2, 8, 2, 200, 200, 128, 128, True),
+            (1, 4, 4, 130, 130, 192, 128, True),
+            (1, 8, 8, 96, 96, 80, 80, True),
+            (2, 4, 4, 64, 300, 64, 64, False)]:
+        q = torch.randn(B, Sq, H, D, generator=gen, device="cuda")
+        k = torch.randn(B, Skv, KVH, D, generator=gen, device="cuda")
+        v = torch.randn(B, Skv, KVH, Dv, generator=gen, device="cuda")
+        do = torch.randn(B, H, Sq, Dv, generator=gen, device="cuda").to(dt)
+        grads = []
+        for fn in (ops.flash_attention, ref.attention_ref):
+            leaves = [t.to(dt).requires_grad_() for t in (q, k, v)]
+            out = fn(*(t.transpose(1, 2) for t in leaves), causal=causal)
+            grads.append(torch.autograd.grad(out, leaves, do))
+        for g, w in zip(*grads):
+            assert g.dtype == dt and torch.isfinite(g.float()).all()
+            scale = w.float().abs().max().item()
+            err = (g.float() - w.float()).abs().max().item()
+            assert err <= tol * scale, (B, H, KVH, Sq, Skv, D, err, scale)
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_unembed_backward_matches_fp32_sums():
+    """The card's bf16 ``unembed`` (fp32-output matmul with its own
+    autograd) gives the logits and gradients of the same bf16 operands
+    widened to fp32, within bf16's rounding of the logits' gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from repro_torch.models.layers import unembed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(2, 64, 256, generator=gen, device="cuda")
+    w = torch.randn(1000, 256, generator=gen, device="cuda") * 0.1
+    g = torch.randn(2, 64, 1000, generator=gen, device="cuda")
+    grads = []
+    for widen in (False, True):
+        xl, wl = (t.to(torch.bfloat16).requires_grad_() for t in (x, w))
+        out = (unembed(xl.float(), wl.float(), torch.float32) if widen
+               else unembed(xl, wl, torch.bfloat16))
+        assert out.dtype == torch.float32
+        grads.append((out.detach(), *torch.autograd.grad(out, (xl, wl), g)))
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype
+        scale = want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= 2e-2 * scale

@@ -56,7 +56,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "core.muqss", "core.simulator", "core.workloads",
         "core.perfcounters", "core.experiments", "core.static_analysis",
         "analysis.lint", "examples.identify_hot_code", "models.mamba2",
-        "models.hybrid", "models.rwkv6", "models.encdec")} <= \
+        "models.hybrid", "models.rwkv6", "models.encdec",
+        "kernels.attention_grad", "data.pipeline", "train.optimizer",
+        "train.loop", "train.checkpoint", "train.elastic", "launch.train",
+        "examples.quickstart")} <= \
         set(res["modules"])
 
 
@@ -97,7 +100,9 @@ def test_serve_without_gpu_raises_instead_of_using_the_cpu():
                                   "--requests", "1"]),
     ("repro_torch.analysis.lint", []),
     ("repro_torch.examples.identify_hot_code", []),
-], ids=["serve-cluster", "lint", "identify_hot_code"])
+    ("repro_torch.launch.train", ["--reduced", "--steps", "1"]),
+    ("repro_torch.examples.quickstart", []),
+], ids=["serve-cluster", "lint", "identify_hot_code", "train", "quickstart"])
 def test_entry_point_without_gpu_raises(module, argv):
     import importlib
 

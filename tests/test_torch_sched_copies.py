@@ -27,6 +27,7 @@ COPIES = [
     "core/task.py", "core/runqueue.py", "core/license.py",
     "core/muqss.py", "core/simulator.py", "core/workloads.py",
     "core/perfcounters.py", "core/experiments.py", "core/adaptive.py",
+    "data/pipeline.py",
 ]
 # lines a copy must word differently, as (reference line, port line)
 DIFFERS = {
