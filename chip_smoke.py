@@ -153,6 +153,35 @@ Phases, each ending in one line:
      head): loss and every gradient finite, every leaf with a gradient
      (a MoE router or shared expert may have none, at most 2, as in the
      reference's test);
+ 13. distribution on the card through NCCL, on a world of one rank (NCCL
+     refuses two ranks on one card; the tests hold the multi-rank
+     semantics on gloo CPU meshes) and the mesh (1, 1) ("data",
+     "model"). (a) qwen1.5-0.5b whole in bf16, phase 12's batches (B 8 x
+     S 1024, ``--data-order 1``, lr 1e-3): 5 steps of the single-device
+     ``make_train_step`` and of the same on a mesh under FSDP and
+     under ZeRO-1, from one state, in alternating turns, the launch
+     counters reset just before and read just after each sharded step;
+     every sharded loss and, after the 5 steps, every parameter equal to
+     the single device's (bit for bit, or within 1e-6 relative with the
+     difference and the leaves that differ printed, and whether the
+     single-device step run twice from one state differs from itself),
+     each run's step p50
+     and peak memory, and one more sharded step of each under
+     ``torch.profiler``: the collective calls a step and the device time
+     of what they launched (``collectives`` range). (b)
+     ``compressed_allreduce`` over every fp32 gradient leaf of one step:
+     its device time, its error against the exact mean at most the
+     leaf's |v|max / 254, and the residual fed into a second call
+     shrinking the two calls' error. (c) grok-1-314b's MoE FFN at full
+     width (d 6144, 8 experts, top-2, expert d_ff 32768, bf16, 9.7 GB of
+     experts) on a 512-token input: ``_moe_a2a_body`` and
+     ``_moe_replicated_body`` (experts gathered over "data" as under FSDP)
+     against ``moe_local`` at a capacity factor of 4 (no drops): outputs
+     within 2e-2 of the output's scale, the same routing, each path's
+     device time; then in fp32 at an expert d_ff of 4096, within 1e-5.
+     (d) ``elastic_restore`` of phase 12's step-10 checkpoint onto the
+     mesh: every leaf bit for bit. The process group is destroyed at the
+     end;
 then the ``kernels`` JSON line, the card line, and the result line.
 
 Any failed phase exits non-zero. Nothing runs on the CPU in place of the
@@ -230,6 +259,15 @@ TRAIN_FAMILIES = {"zamba2-2.7b": 6, "rwkv6-3b": 2, "whisper-large-v3": 2,
                   "grok-1-314b": None, "deepseek-v3-671b": None}
 TRAIN_STEP_BATCH = dict(batch=2, seq=256, transcript=64)
 TRAIN_CKPT = ROOT / "build" / "chip_smoke_train"
+# phase 13: distribution through NCCL on a world of one rank: the sharded
+# train step's steps a run, grok-1-314b's full-width MoE FFN (capacity
+# factor 4 = E / k: no token can drop; a 512-token input; fp32 at an
+# expert d_ff of 4096), tolerances, and where the group meets and phase
+# 12's step-10 checkpoint waits
+DIST = dict(steps=5, moe_arch="grok-1-314b", moe_tokens=512, moe_cf=4.0,
+            moe_fp32_ff=4096, moe_tol={"bfloat16": 2e-2, "float32": 1e-5},
+            loss_rel=1e-6)
+DIST_DIR = ROOT / "build" / "chip_smoke_dist"
 # decode timings rotate over copies of their inputs that together exceed
 # the H100's 50 MB L2 cache
 ROTATE_BYTES = 75e6
@@ -1899,6 +1937,11 @@ def train_phase():
             "train: the resumed run disagrees with the uninterrupted one")
     train_profile(rest.profile, rest.step_ms[-1])
     del rest
+    # phase 13 (d) restores the step-10 checkpoint onto a mesh
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    (DIST_DIR / "ckpt").mkdir(parents=True)
+    shutil.move(TRAIN_CKPT / "whole" / f"step_{every}",
+                DIST_DIR / "ckpt" / f"step_{every}")
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
     free_cuda()
     return launches
@@ -2156,6 +2199,376 @@ def train_family_phase():
     return out
 
 
+def dist_phase():
+    """Phase 13: distribution through NCCL on a world of one rank, the
+    mesh (1, 1) ("data", "model"); (a)-(d) as the module docstring says.
+    Returns the launches of the sharded steps, counted per step."""
+    import shutil
+
+    import torch
+    import torch.distributed as tdist
+    from repro_torch.launch.mesh import make_test_mesh
+    torch.cuda.set_device(0)
+    DIST_DIR.mkdir(parents=True, exist_ok=True)
+    rdv = DIST_DIR / "rendezvous"
+    rdv.unlink(missing_ok=True)
+    tdist.init_process_group("nccl", init_method=f"file://{rdv}",
+                             world_size=1, rank=0)
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"))
+        say(f"  NCCL world of {tdist.get_world_size()}, mesh "
+            f"{mesh.shape} on {mesh.device} (torch.distributed "
+            f"{tdist.get_backend()}, NCCL {torch.cuda.nccl.version()})")
+        walls = {}
+        t0 = time.perf_counter()
+        launches, grads = dist_train_phase(mesh)
+        walls["a"] = time.perf_counter() - t0
+        dist_compressed_phase(mesh, grads)
+        del grads
+        free_cuda()
+        walls["b"] = time.perf_counter() - t0 - sum(walls.values())
+        dist_moe_phase(mesh)
+        free_cuda()
+        walls["c"] = time.perf_counter() - t0 - sum(walls.values())
+        dist_restore_phase(mesh)
+        walls["d"] = time.perf_counter() - t0 - sum(walls.values())
+        say("  phase 13 walls: " + ", ".join(f"({k}) {v:.1f}s"
+                                             for k, v in walls.items()))
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(DIST_DIR, ignore_errors=True)
+    return launches
+
+
+def clone_state(state, grad: bool):
+    """A copy of a train state; its parameters require grad if ``grad``."""
+    from repro_torch.bridge import flatten, unflatten
+    out = {k: v.detach().clone() for k, v in flatten(state).items()}
+    if grad:
+        for k, v in out.items():
+            if k.startswith("params/"):
+                v.requires_grad_(True)
+    return unflatten(out)
+
+
+def collective_profile(prof):
+    """(collective calls by name, device ms by device activity, device
+    ms of kernels named for NCCL) in a profile: the process-group ops (``c10d::*``) that started inside a
+    ``collectives`` range (``dist.collectives`` wraps each process-group
+    call, and nothing else, in one) and the device work that any op
+    inside such a range launched (NCCL's kernels, or its copies on a
+    world of one rank)."""
+    from torch.autograd import DeviceType
+    events = prof.events()
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name == "collectives" and e.device_type == DeviceType.CPU]
+    calls, device = {}, {}
+    for e in events:
+        if e.device_type != DeviceType.CPU or e.name == "collectives" or \
+                not any(a <= e.time_range.start <= b for a, b in spans):
+            continue
+        if e.name.startswith("c10d::"):
+            calls[e.name] = calls.get(e.name, 0) + 1
+        for k in e.kernels:
+            name = kernel_label(k.name)
+            device[name] = device.get(name, 0.0) + k.duration / 1e3
+    # NCCL's own kernels, wherever the profiler linked them
+    nccl = sum(e.time_range.elapsed_us() for e in events
+               if e.device_type == DeviceType.CUDA
+               and "nccl" in e.name.lower()) / 1e3
+    return calls, device, nccl
+
+
+def dist_train_phase(mesh):
+    """Phase 13 (a): qwen1.5-0.5b whole in bf16, the single-device step and
+    the sharded step under FSDP and ZeRO-1 from one state, 5 steps each
+    in alternating turns on phase 12's batches; the losses held equal.
+    Returns (the sharded steps' launches, one step's fp32 gradients)."""
+    import torch
+    from repro_torch.bridge import flatten, unflatten
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, Pipeline
+    from repro_torch.dist.context import make_dist
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import (init_train_state, make_train_step,
+                                        shard_train_state)
+    from repro_torch.train.optimizer import OptConfig
+    cfg = get_arch(ARCH)
+    B, S, steps = TRAIN["batch"], TRAIN["seq"], DIST["steps"]
+    pipe = Pipeline(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                               seed=0, synthetic_order=TRAIN["data_order"]))
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in pipe.next_batch().items()} for _ in range(steps)]
+    opt = OptConfig(lr=TRAIN["lr"], warmup_steps=min(20, steps // 5),
+                    total_steps=steps)
+    single = build_model(cfg, "cuda")
+    state0 = init_train_state(single, torch.Generator(
+        device="cuda").manual_seed(0), opt)
+    runs = {"single": (make_train_step(single, opt),
+                       clone_state(state0, grad=True))}
+    shape = ShapeConfig("train", S, B, "train")
+    for name, zero1 in (("fsdp", False), ("zero1", True)):
+        model = build_model(cfg, "cuda", make_dist(mesh, zero1=zero1))
+        runs[name] = (make_train_step(
+            model, opt, batch_specs=model.batch_specs(shape)),
+            shard_train_state(state0, model, opt))
+    del state0
+    free_cuda()
+    losses = {n: [] for n in runs}
+    ms = {n: [] for n in runs}
+    peak = dict.fromkeys(runs, 0)
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    for i in range(steps):
+        for name in (list(runs) if i % 2 == 0 else list(runs)[::-1]):
+            step, state = runs[name]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, m = step(state, batches[i])
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            if name != "single":
+                for k, n in ops.launch_counts().items():
+                    launches[k] += n
+            peak[name] = max(peak[name], torch.cuda.max_memory_allocated())
+            runs[name] = (step, state)
+            losses[name].append(loss)
+    want = losses["single"]
+    say(f"  {ARCH} whole in bf16, B {B} x S {S}, {steps} steps each in "
+        f"alternating turns ({card_line()}): single-device losses "
+        f"{[round(x, 6) for x in want]}")
+    differ = False
+    for name in ("fsdp", "zero1"):
+        got = losses[name]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        same = got == want
+        differ |= not same
+        say(f"  sharded step, {name}: losses {[round(x, 6) for x in got]};"
+            f" bit-equal to the single device: {same}"
+            + ("" if same else f", largest relative difference {rel:.3g} "
+               f"(tol {DIST['loss_rel']})"))
+        require(rel <= DIST["loss_rel"],
+                f"dist: the {name} step's losses part from one device's")
+    say("  step ms p50 (each step's ms): "
+        + ", ".join(f"{n} {statistics.median(v):.1f} "
+                    f"{[round(x, 1) for x in v]}" for n, v in ms.items())
+        + "; peak memory allocated during a step (all three states "
+        "resident): " + ", ".join(f"{n} {v / 1e9:.2f} GB"
+                                  for n, v in peak.items()))
+    require(launches["flash_attention"] == 2 * 2 * cfg.n_layers * steps,
+            f"dist: flash_attention launched {launches['flash_attention']}"
+            f" times in the sharded steps")
+    want = flatten(runs["single"][1]["params"])
+    for name in ("fsdp", "zero1"):
+        got = flatten(runs[name][1]["params"])     # full on a world of one
+        rels = {k: float((got[k] - w.detach()).abs().max())
+                / max(float(w.abs().max()), 1e-30) for k, w in want.items()}
+        parted = sorted((k for k, r in rels.items() if r), key=rels.get,
+                        reverse=True)
+        differ |= bool(parted)
+        worst = max(rels.values())
+        say(f"  {name}: parameters after {steps} steps bit-equal to the "
+            f"single device's: {not parted} (worst leaf {worst:.3g} of "
+            f"its scale)" + ("" if not parted else
+                             f"; {len(parted)} of {len(rels)} leaves differ,"
+                             f" most: " + ", ".join(f"{k} {rels[k]:.3g}"
+                                                    for k in parted[:5])))
+        require(worst <= DIST["loss_rel"],
+                f"dist: the {name} step's parameters part from one device's")
+    if differ:
+        # the cause: does one device's step differ from itself?
+        step, state = runs["single"]
+        outs = [step(clone_state(state, grad=True), batches[0])
+                for _ in range(2)]
+        a, b = (flatten(o[0]["params"]) for o in outs)
+        selfsame = float(outs[0][1]["loss"]) == float(outs[1][1]["loss"]) \
+            and all(torch.equal(a[k], b[k]) for k in a)
+        say("  the single-device step run twice from one state: "
+            f"bit-equal to itself: {selfsame} ("
+            + ("so the sharded step's difference is its own"
+               if selfsame else "so one device's own run-to-run "
+               "variation covers the difference") + ")")
+        del outs, a, b
+        free_cuda()
+    for name in ("fsdp", "zero1"):
+        step, state = runs[name]
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            state, _ = step(state, batches[0])
+            torch.cuda.synchronize()
+        calls, device, nccl = collective_profile(prof)
+        say(f"  sharded step, {name}, under torch.profiler: "
+            f"{sum(calls.values())} collectives a step {calls}, "
+            f"{sum(device.values()):.3f} ms of device time launched by "
+            f"them {{" + ", ".join(f"{k}: {v:.3f}" for k, v in
+                                   device.items()) + f"}}, NCCL kernels "
+            f"{nccl:.3f} ms")
+        runs[name] = (step, state)
+    # one step's fp32 gradients, for (b)
+    step, state = runs["fsdp"]
+    params = {k: v.detach().requires_grad_(True)
+              for k, v in flatten(state["params"]).items()}
+    loss, _ = single.loss(unflatten(params), batches[0])
+    grads = [g.float() for g in torch.autograd.grad(loss,
+                                                    list(params.values()))]
+    del runs, params, loss
+    free_cuda()
+    return launches, grads
+
+
+def dist_compressed_phase(mesh, grads):
+    """Phase 13 (b): ``compressed_allreduce`` over every gradient leaf on
+    NCCL: its device time over all leaves, its error against the exact
+    mean (the gradient itself on a world of one) at most |v|max / 254 a
+    leaf (and an fp32 ulp of |v|max for the products), and the residual
+    fed into a second call making the two calls' sum nearer twice the
+    gradient than twice one call's."""
+    import torch
+    from repro_torch.dist.collectives import compressed_allreduce
+    group = mesh.group(("data", "model"))
+    zeros = [torch.zeros_like(g) for g in grads]
+    first = [compressed_allreduce(g, z, group) for g, z in zip(grads, zeros)]
+    worst = 0.0
+    for g, (m, _) in zip(grads, first):
+        err = float((m - g).abs().max())
+        amax = float(g.abs().max())
+        bound = amax / 254
+        worst = max(worst, err / bound if bound else 0.0)
+        require(err <= bound + amax * 2 ** -23,
+                f"dist: compressed_allreduce error {err} above {bound}")
+    second = [compressed_allreduce(g, e, group)[0]
+              for g, (_, e) in zip(grads, first)]
+    fb = sum(float((m1 + m2 - 2 * g).square().sum())
+             for g, (m1, _), m2 in zip(grads, first, second)) ** 0.5
+    nofb = sum(float((2 * (m1 - g)).square().sum())
+               for g, (m1, _) in zip(grads, first)) ** 0.5
+    require(fb < nofb, "dist: error feedback did not shrink the error")
+    n = sum(g.numel() for g in grads)
+    t = device_ms([lambda: [compressed_allreduce(g, z, group)
+                            for g, z in zip(grads, zeros)]], iters=5, reps=3)
+    mach = machine()
+    bound_ms = 16 * n / mach.hbm_bytes_per_s * 1e3
+    say(f"  compressed_allreduce over {len(grads)} fp32 gradient leaves "
+        f"({n / 1e6:.1f}M values, {4 * n / 1e9:.2f} GB): {t['ms']:.3f} ms "
+        f"of device time (hidden {t['hidden']}); bound {bound_ms:.3f} ms "
+        f"(bytes: x and the residual read, the mean and the new residual "
+        f"written), {card_line()}; worst error {worst:.3f} of the half "
+        f"step |v|max / 254; two calls' error with the residual fed back "
+        f"{fb:.4g} against {nofb:.4g} without")
+
+
+def dist_moe_phase(mesh):
+    """Phase 13 (c): grok-1-314b's MoE FFN at full width through both
+    sharded bodies against ``moe_local``, bf16 and then fp32 at a cut
+    expert width; routing recorded, each path's device time."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.context import make_dist
+    from repro_torch.models import moe
+    from repro_torch.models.layers import materialize
+    dist = make_dist(mesh)
+    base = get_arch(DIST["moe_arch"])
+    for dname in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(base, param_dtype=dname,
+                                  compute_dtype=dname,
+                                  moe=dataclasses.replace(
+                                      base.moe,
+                                      capacity_factor=DIST["moe_cf"]))
+        if dname == "float32":
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, d_ff=DIST["moe_fp32_ff"]))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        dtype = getattr(torch, dname)
+        p = materialize(moe.moe_init(cfg), gen, dtype, "cuda")
+        x2 = (torch.randn(DIST["moe_tokens"], cfg.d_model, generator=gen,
+                          device="cuda") * 0.5).to(dtype)
+        lay = moe.expert_layout(cfg, 1)
+        paths = {"moe_local": lambda: moe.moe_local(p, x2, cfg),
+                 "a2a": lambda: moe._moe_a2a_body(p, x2, cfg, lay, dist),
+                 "replicated": lambda: moe._moe_replicated_body(
+                     p, x2, cfg, lay, dist)}
+        out, routes = {}, {}
+        for name, fn in paths.items():
+            routes[name] = []
+            with torch.no_grad(), recorded_routes(routes[name]):
+                out[name] = fn()
+        y0, aux0 = out["moe_local"]
+        scale = float(y0.float().abs().max())
+        tol = DIST["moe_tol"][dname]
+        experts = sum(p[k].numel() * p[k].element_size()
+                      for k in ("up", "gate", "down")) / 1e9
+        line = []
+        for name in ("a2a", "replicated"):
+            y, aux = out[name]
+            err = float((y.float() - y0.float()).abs().max())
+            same = torch.equal(routes[name][0], routes["moe_local"][0])
+            require(err <= tol * scale and same
+                    and float(aux["drop_frac"]) == 0.0,
+                    f"dist: {name} body disagrees with moe_local in {dname}"
+                    f" (err {err}, scale {scale}, routing equal {same})")
+            line.append(f"{name} max err {err:.3g} (tol {tol} x {scale:.3g}),"
+                        f" routing equal {same}")
+        require(float(aux0["drop_frac"]) == 0.0, "dist: moe_local dropped")
+        times = ""
+        if dname == "bfloat16":
+            with torch.no_grad():
+                t = {n: device_ms([fn], iters=5, reps=3)
+                     for n, fn in paths.items()}
+            times = "; device ms " + ", ".join(
+                f"{n} {v['ms']:.3f}" for n, v in t.items()) + \
+                f" ({card_line()})"
+        say(f"  {cfg.name} MoE FFN, {dname}, d {cfg.d_model}, "
+            f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, expert d_ff "
+            f"{cfg.moe.d_ff} ({experts:.2f} GB of experts), "
+            f"{DIST['moe_tokens']} tokens, capacity factor "
+            f"{DIST['moe_cf']}, no drops: " + "; ".join(line) + times)
+        del p, x2, out, paths
+        free_cuda()
+
+
+def dist_restore_phase(mesh):
+    """Phase 13 (d): phase 12's step-10 checkpoint restored onto the mesh
+    through ``elastic_restore`` (this rank's shards, on the card), then
+    gathered: every leaf bit for bit the file's (as the checkpoint's own
+    restore reads it, on the host)."""
+    import torch
+    from repro_torch.bridge import flatten
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.context import make_dist
+    from repro_torch.models.api import build_model
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.elastic import elastic_restore
+    from repro_torch.train.loop import gather_train_state, train_state_specs
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    model = build_model(get_arch(ARCH), "cuda", make_dist(mesh))
+    abstract = model.abstract_params()
+    opt = OptConfig(lr=TRAIN["lr"])
+    like = {"params": abstract, "opt": init_opt_state(abstract, opt)}
+    t0 = time.perf_counter()
+    state, meta = elastic_restore(CheckpointManager(DIST_DIR / "ckpt"),
+                                  like, model.dist, train_state_specs(model))
+    full = flatten(gather_train_state(state, model, opt))
+    wall = time.perf_counter() - t0
+    host, _ = CheckpointManager(DIST_DIR / "ckpt").restore(like)
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    for k, h in flatten(host).items():
+        t = full[k]
+        require(t.dtype == h.dtype and t.shape == h.shape and torch.equal(
+            t.view(bits[t.element_size()]),
+            h.to(t.device).view(bits[t.element_size()])),
+            f"dist: restored leaf {k} differs from the checkpoint")
+    size = sum(t.numel() * t.element_size() for t in full.values()) / 1e9
+    say(f"  elastic_restore of phase 12's step-{meta['step']} checkpoint "
+        f"({len(full)} leaves, {size:.2f} GB) onto the (1, 1) NCCL mesh "
+        f"and gathered back in {wall:.1f}s: every leaf bit for bit")
+
+
 def lint_phase():
     """``repro_torch.analysis.lint``'s ``run_lint`` on the card, held to
     the committed baseline. Returns the run's launches and wall seconds."""
@@ -2286,6 +2699,15 @@ def main() -> int:
             f"{worst[0]:.3g}, backward {worst_bwd:.3g}); "
             f"{len(family_launches)} families stepped, "
             f"{time.perf_counter() - t12:.1f}s wall")
+
+        say("phase 13 distribution through NCCL (world of one rank, mesh "
+            "(1, 1)):")
+        free_cuda()
+        t13 = time.perf_counter()
+        dist_launches = dist_phase()
+        say(f"phase 13 distribution: the sharded step equals one device's, "
+            f"compressed_allreduce, both MoE bodies and the restore "
+            f"checked, {time.perf_counter() - t13:.1f}s wall")
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -2313,7 +2735,8 @@ def main() -> int:
                                      whisper_launches[name],
                                  "train": train_launches[name],
                                  **{f"train {arch}": n[name] for arch, n
-                                    in family_launches.items()}},
+                                    in family_launches.items()},
+                                 "dist": dist_launches[name]},
             "max_abs_err": main_case["max_abs_err"],
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],

@@ -4,12 +4,18 @@
 flattened to a ``/``-joined dict of numpy arrays (the caller flattens it;
 this module imports neither JAX nor the reference) and rebuilds the
 port's nested dict of tensors, key for key and shape for shape. The two
-layouts are the same, so the map is one-to-one.
+layouts are the same, so the map is one-to-one. The reference's sharded
+initialisations (``moe_init`` for a model axis M > 1, ``build_model(cfg,
+make_dist(mesh)).init``) come across the same way, as full numpy leaves
+in the device-major expert layout, and then into each rank's shards
+(``placements``: ``dist.sharding.tree_shardings``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.dist.sharding import map_with_specs, shard
 
 _TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                  "float16": torch.float16}
@@ -40,10 +46,15 @@ def unflatten(flat: dict) -> dict:
     return out
 
 
-def params_from_jax(flat: dict, device) -> dict:
+def params_from_jax(flat: dict, device, placements=None) -> dict:
     """``{"layers/attn/wq/w": array, ...}`` -> nested dict of tensors on
-    ``device``."""
-    return unflatten({k: _tensor(a, device) for k, a in flat.items()})
+    ``device``: full, or this rank's shards of them under ``placements``
+    (a nested dict of ``dist.sharding.Placement``)."""
+    full = unflatten({k: _tensor(a, device) for k, a in flat.items()})
+    if placements is None:
+        return full
+    return map_with_specs(lambda t, pl: shard(t, pl).clone(), full,
+                          placements)
 
 
 def flatten(params: dict, prefix: str = "") -> dict:

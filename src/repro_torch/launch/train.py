@@ -14,8 +14,8 @@ step's own time; there it also prints tokens/s. Two flags are the port's
 own: ``--dtype`` trains the config in another parameter and compute dtype
 (``float32`` beside the published ``bfloat16``, to hold one curve against
 the other), and ``--profile-step N`` runs step N under ``torch.profiler``
-and returns the profile. The sharded step comes with distribution
-(ROADMAP).
+and returns the profile. It trains on one device; the same
+``train.loop.make_train_step`` takes a model built on a mesh.
 """
 from __future__ import annotations
 
@@ -32,6 +32,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_arch
 from repro_torch.data.pipeline import DataConfig, DataState, Pipeline
+from repro_torch.dist.context import no_dist
 from repro_torch.models.api import build_model
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.elastic import (Watchdog, elastic_restore,
@@ -125,7 +126,8 @@ def main(argv=None) -> TrainResult:
     if args.ckpt_dir:
         ckpt = CheckpointManager(args.ckpt_dir, keep=2)
         if ckpt.latest_step() is not None:
-            state, meta = elastic_restore(ckpt, state, device)
+            state, meta = elastic_restore(ckpt, state, no_dist(),
+                                          device=device)
             out.start_step = meta["step"]
             pipe.state = DataState.from_dict(meta.get("data", {}))
             print(f"[train] resumed from step {out.start_step}")

@@ -21,31 +21,43 @@ logits never live at once (at a 152k vocab they would dominate memory);
 and deepseek-v3's multi-token-prediction head, ``mtp_init`` /
 ``mtp_loss``. Attention goes through ``flash_attention`` forward and its
 registered backward (``kernels.library``).
+
+On a mesh (``dist``): ``lm_param_specs`` gives the reference's layout of
+every leaf (TP over ``model`` on head/ff dims, FSDP over the first dp
+axis on d_model dims), ``lm_init`` lays the experts out for
+``dist.ep_size``, the layers call ``dist.constrain`` where the reference
+does, and the MoE FFN runs its explicit dispatch (``moe.moe_block``).
+The dense leaves reach the forward whole (``train.loop`` gathers them on
+use); ``lm_local_leaves`` names the leaves the forward takes as this
+rank's shards.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.context import DistContext, no_dist
+from repro_torch.dist.sharding import P, map_with_specs
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     apply_norm, dt, init_embedding, init_mlp, init_norm, materialize, mlp,
     remat_fn, token_ce, unembed,
 )
-from repro_torch.models.moe import moe_block, moe_init
+from repro_torch.models.moe import moe_block, moe_init, moe_param_specs
 
 
 # ------------------------------------------------------------------ init
 
 
-def _layer_init(cfg: ArchConfig) -> dict:
-    """One layer's parameter spec (``layers.Draw``s)."""
+def _layer_init(cfg: ArchConfig, model_size: int = 1) -> dict:
+    """One layer's parameter spec (``layers.Draw``s); the experts laid
+    out for an expert-parallel degree of ``model_size``."""
     a = attn.mla_init(cfg) if cfg.attention == "mla" else attn.gqa_init(cfg)
     p = {"attn": a,
          "norm1": init_norm(cfg.d_model, cfg.norm),
          "norm2": init_norm(cfg.d_model, cfg.norm)}
     if cfg.moe is not None:
-        p["moe"] = moe_init(cfg)
+        p["moe"] = moe_init(cfg, model_size)
     else:
         p["mlp"] = init_mlp(cfg.d_model, cfg.d_ff, cfg.glu)
     return p
@@ -68,12 +80,14 @@ def layer_slices(layers: dict, n_layers: int) -> list:
     return [pick(parts, i) for i in range(n_layers)]
 
 
-def lm_init(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
+def lm_init(gen: torch.Generator, cfg: ArchConfig, device,
+            dist: DistContext = no_dist()) -> dict:
     """Random init from ``gen`` (a generator on ``device``; None on the
-    meta device): the stacked layers first, then the embeddings."""
+    meta device): the stacked layers first, then the embeddings. Full
+    tensors on every rank; the experts in ``dist.ep_size``'s layout."""
     dtype = dt(cfg.param_dtype)
-    p = {"layers": materialize(_layer_init(cfg), gen, dtype, device,
-                               layers=cfg.n_layers)}
+    p = {"layers": materialize(_layer_init(cfg, dist.ep_size), gen, dtype,
+                               device, layers=cfg.n_layers)}
     rest = {"embed": init_embedding(cfg.vocab, cfg.d_model),
             "final_norm": init_norm(cfg.d_model, cfg.norm)}
     if not cfg.tie_embeddings:
@@ -82,13 +96,81 @@ def lm_init(gen: torch.Generator, cfg: ArchConfig, device) -> dict:
     return p
 
 
+# ------------------------------------------------------------- sharding
+
+
+def lm_param_specs(cfg: ArchConfig, dist: DistContext) -> dict:
+    """Specs mirroring lm_init. TP over 'model' on head/ff dims, FSDP over
+    the first dp axis on d_model dims. Leading layer axis never sharded."""
+    if not dist.active:
+        return map_with_specs(lambda _: P(), lm_init(None, cfg, "meta", dist))
+    m = dist.model_axis
+    fs = dist.dp_axes[0] if (dist.fsdp and dist.dp_axes) else None
+    L = None  # layer-stack axis
+
+    def stack(spec: P) -> P:
+        return P(L, *spec)
+
+    if cfg.attention == "mla":
+        a = {"wq_a": stack(P(fs, None)), "q_norm": stack(P(None)),
+             "wq_b": stack(P(None, m)),
+             "wkv_a": stack(P(fs, None)), "kv_norm": stack(P(None)),
+             "wkv_b": stack(P(None, m)),
+             "wo": stack(P(m, fs))}
+        a = {k: ({"w": v} if k.startswith("w") else v) for k, v in a.items()}
+    else:
+        a = {"wq": {"w": stack(P(fs, m))},
+             "wk": {"w": stack(P(fs, m))},
+             "wv": {"w": stack(P(fs, m))},
+             "wo": {"w": stack(P(m, fs))}}
+        if cfg.qkv_bias:
+            for k in ("wq", "wk", "wv"):
+                a[k]["b"] = stack(P(m))
+        if cfg.qk_norm:
+            a["q_scale"] = stack(P(None))
+            a["k_scale"] = stack(P(None))
+    specs = {"attn": a,
+             "norm1": _norm_spec(cfg, stack),
+             "norm2": _norm_spec(cfg, stack)}
+    if cfg.moe is not None:
+        specs["moe"] = map_with_specs(stack, moe_param_specs(cfg, dist))
+    else:
+        mp = {"up": {"w": stack(P(fs, m))}, "down": {"w": stack(P(m, fs))}}
+        if cfg.glu:
+            mp["gate"] = {"w": stack(P(fs, m))}
+        specs["mlp"] = mp
+    out = {"embed": P(m, fs),
+           "layers": specs,
+           "final_norm": _norm_spec(cfg, lambda s: s)}
+    if not cfg.tie_embeddings:
+        out["unembed"] = P(m, fs)
+    return out
+
+
+def _norm_spec(cfg, stack):
+    s = {"scale": stack(P(None))}
+    if cfg.norm == "layernorm":
+        s["bias"] = stack(P(None))
+    return s
+
+
+def lm_local_leaves(cfg: ArchConfig, dist: DistContext) -> frozenset:
+    """The leaves the forward takes as this rank's shards, because it runs
+    their collectives itself: the experts, when the MoE dispatch is
+    sharded (a model axis of more than 1)."""
+    if cfg.moe is None or not dist.active or dist.model_size == 1:
+        return frozenset()
+    return frozenset(f"layers/moe/{k}" for k in ("up", "down", "gate")
+                     if k != "gate" or cfg.glu)
+
+
 # --------------------------------------------------------------- forward
 
 
-def _ffn(p_l, h, cfg: ArchConfig):
+def _ffn(p_l, h, cfg: ArchConfig, dist: DistContext = no_dist()):
     """The FFN of one layer on its normed input: (y, MoE aux or None)."""
     if cfg.moe is not None:
-        return moe_block(p_l["moe"], h, cfg)
+        return moe_block(p_l["moe"], h, cfg, dist)
     return mlp(p_l["mlp"], h, cfg.act, cfg.glu, dt(cfg.compute_dtype)), None
 
 
@@ -110,14 +192,16 @@ def _positions(tokens):
     return torch.arange(S, device=tokens.device).expand(B, S)
 
 
-def _layer_fwd(p_l, x, positions, cfg: ArchConfig):
+def _layer_fwd(p_l, x, positions, cfg: ArchConfig,
+               dist: DistContext = no_dist()):
     """One layer over the whole sequence: (x, MoE aux or None)."""
+    xs = P(dist.dp_axes, None, None) if dist.active else None
     forward = attn.mla_forward if cfg.attention == "mla" \
         else attn.gqa_forward
     h = apply_norm(p_l["norm1"], x, cfg.norm)
-    x = x + forward(p_l["attn"], h, cfg, positions)
-    y, aux = _ffn(p_l, apply_norm(p_l["norm2"], x, cfg.norm), cfg)
-    return x + y, aux
+    x = dist.constrain(x + forward(p_l["attn"], h, cfg, positions), xs)
+    y, aux = _ffn(p_l, apply_norm(p_l["norm2"], x, cfg.norm), cfg, dist)
+    return dist.constrain(x + y, xs), aux
 
 
 def _zero_aux(device) -> dict:
@@ -126,17 +210,19 @@ def _zero_aux(device) -> dict:
 
 
 def lm_backbone(params, tokens, cfg: ArchConfig, remat: str = "none",
-                positions=None):
+                positions=None, dist: DistContext = no_dist()):
     """tokens [B,S] -> (hidden [B,S,d] after the final norm, aux: the MoE
     losses and drop fraction summed over the layers, zeros without MoE).
     ``remat`` ("none", "dots" or "full") applies per layer."""
     x = _embed(params, tokens, cfg)
+    if dist.active:
+        x = dist.constrain(x, P(dist.dp_axes, None, None))
     if positions is None:
         positions = _positions(tokens)
     aux = _zero_aux(tokens.device)
     layer = remat_fn(_layer_fwd, remat)
     for p_l in layer_slices(params["layers"], cfg.n_layers):
-        x, aux_l = layer(p_l, x, positions, cfg)
+        x, aux_l = layer(p_l, x, positions, cfg, dist)
         if aux_l is not None:
             aux = {k: aux[k] + aux_l[k] for k in aux}
     return apply_norm(params["final_norm"], x, cfg.norm), aux
@@ -156,14 +242,14 @@ def _ce_sum(x, w, targets, cdt):
 
 def lm_loss(params, tokens, targets, cfg: ArchConfig, remat: str = "full",
             loss_chunk: int = 512, lb_coef: float = 0.01,
-            z_coef: float = 1e-4):
+            z_coef: float = 1e-4, dist: DistContext = no_dist()):
     """Sequence-chunked cross-entropy: chunks of ``min(loss_chunk, S)``
     positions (which must divide S, as the reference's reshape needs),
     each under checkpoint, so logits never live at [B,S,V]. The MoE aux
     losses are added with ``lb_coef`` and ``z_coef`` over the layers.
     Returns (loss, metrics)."""
     B, S = tokens.shape
-    x, aux = lm_backbone(params, tokens, cfg, remat)
+    x, aux = lm_backbone(params, tokens, cfg, remat, dist=dist)
     w = _out_weight(params, cfg)
     c = min(loss_chunk, S)
     if S % c:

@@ -1,10 +1,11 @@
 """Failure handling for the training loop, the port of
 ``repro.train.elastic``.
 
-* ``elastic_restore`` — resume the latest checkpoint. Checkpoints hold
-  host arrays and the data cursor is global, so a resume is placement
-  only: here onto one device; restoring onto a mesh of another shape
-  comes with distribution (ROADMAP).
+* ``elastic_restore`` — resume the latest checkpoint onto any mesh:
+  checkpoints hold full host arrays (mesh-agnostic; a sharded state is
+  gathered before it is saved, ``train.loop.gather_train_state``) and the
+  data cursor is global, so a rescale is placement only: each rank keeps
+  its shards of the mesh it is given, whatever mesh wrote the file.
 * ``Watchdog`` — straggler/failure detection: a per-step deadline.
 * ``install_preemption_handler`` — SIGTERM -> synchronous final
   checkpoint (preemptible-VM style clean exit).
@@ -15,18 +16,32 @@ import signal
 from typing import Callable, Optional
 
 from repro_torch.bridge import flatten, unflatten
+from repro_torch.dist.context import DistContext
+from repro_torch.dist.sharding import map_with_specs, shard, tree_shardings
 from repro_torch.train.checkpoint import CheckpointManager
 
 
-def elastic_restore(ckpt: CheckpointManager, like_state, device):
-    """Restore the latest checkpoint into ``like_state``'s structure and
-    place it on ``device``: (state, meta). The parameters come back as
-    leaves that require grad where ``like_state``'s do."""
+def elastic_restore(ckpt: CheckpointManager, like_state,
+                    new_dist: DistContext, state_specs=None, device=None):
+    """Restore the latest checkpoint into ``like_state``'s structure (full
+    shapes and dtypes; meta tensors will do) and place it: (state, meta).
+    On an active ``new_dist`` each rank keeps its shards under
+    ``state_specs`` (``train.loop.train_state_specs``), on the mesh's
+    device; without one the full state goes to ``device``, which must be
+    named, its leaves requiring grad where ``like_state``'s do."""
+    if not new_dist.active and device is None:
+        raise ValueError("elastic_restore without a mesh needs a device")
     host_state, meta = ckpt.restore(like_state)
-    like = flatten(like_state)
-    placed = {k: v.to(device).requires_grad_(like[k].requires_grad)
-              for k, v in flatten(host_state).items()}
-    return unflatten(placed), meta
+    if not new_dist.active:
+        like = flatten(like_state)
+        placed = {k: v.to(device).requires_grad_(like[k].requires_grad)
+                  for k, v in flatten(host_state).items()}
+        return unflatten(placed), meta
+    dev = new_dist.mesh.device
+    placed = map_with_specs(
+        lambda a, pl: shard(a, pl).to(dev, copy=True), host_state,
+        tree_shardings(new_dist, like_state, state_specs))
+    return placed, meta
 
 
 class Watchdog:

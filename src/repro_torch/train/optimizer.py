@@ -75,11 +75,15 @@ def global_norm(tree):
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: OptConfig):
-    """One AdamW step: (new params, new state, {"grad_norm", "lr"})."""
+def adamw_update(params, grads, state, cfg: OptConfig, gnorm=None):
+    """One AdamW step: (new params, new state, {"grad_norm", "lr"}).
+    ``gnorm`` is the global gradient norm where ``grads`` hold only
+    shards of the gradient (the sharded step's); by default the norm of
+    ``grads``."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     b1, b2 = cfg.b1, cfg.b2

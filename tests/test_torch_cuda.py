@@ -461,3 +461,66 @@ def test_cuda_bf16_unembed_backward_matches_fp32_sums():
         assert got.dtype == want.dtype
         scale = want.float().abs().max().item()
         assert (got.float() - want.float()).abs().max().item() <= 2e-2 * scale
+
+
+@pytest.mark.cuda
+def test_cuda_world_of_one_nccl_matches_single_device(tmp_path):
+    """A world-1 NCCL group on a (1, 1) mesh: the MoE's a2a body against
+    ``moe_local`` (fp32, no drops), and one sharded train step of the
+    reduced qwen1.5-0.5b (FSDP, then ZeRO-1) against the single-device
+    step from the same state: the loss and every parameter bit for bit
+    (the gathers hand the products contiguous weights, as one device
+    does, so the same kernels run)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (NCCL has no CPU mode)")
+    import dataclasses
+
+    import torch.distributed as tdist
+    from repro_torch.bridge import flatten
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.context import make_dist
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import (gather_train_state, init_train_state,
+                                        make_train_step, shard_train_state)
+    from repro_torch.train.optimizer import OptConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    tdist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                             world_size=1, rank=0)
+    try:
+        mesh = make_test_mesh((1, 1), ("data", "model"))
+        cfg = get_arch("grok-1-314b").reduced()
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        p = build_model(cfg, "cuda").init(gen)["layers"]["moe"]
+        p = {k: v[0] if k != "shared" else v for k, v in p.items()}
+        x = torch.randn(64, cfg.d_model, generator=gen, device="cuda")
+        want, _ = moe.moe_local(p, x, cfg)
+        got, aux = moe._moe_a2a_body(p, x, cfg, moe.expert_layout(cfg, 1),
+                                     make_dist(mesh))
+        assert float(aux["drop_frac"]) == 0.0
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+
+        cfg = get_arch("qwen1.5-0.5b").reduced()
+        opt = OptConfig(lr=1e-3)
+        batch = {k: torch.randint(0, cfg.vocab, (4, 64), generator=gen,
+                                  device="cuda") for k in ("tokens",
+                                                           "targets")}
+        single = build_model(cfg, "cuda")
+        state = init_train_state(single, torch.Generator(
+            device="cuda").manual_seed(1), opt)
+        s1, m1 = make_train_step(single, opt)(state, batch)
+        for zero1 in (False, True):
+            model = build_model(cfg, "cuda", make_dist(mesh, zero1=zero1))
+            s2, m2 = make_train_step(model, opt)(
+                shard_train_state(state, model, opt), batch)
+            assert float(m1["loss"]) == float(m2["loss"])
+            full = flatten(gather_train_state(s2, model, opt)["params"])
+            for k, w in flatten(s1["params"]).items():
+                assert torch.equal(full[k], w.detach()), (zero1, k)
+    finally:
+        tdist.destroy_process_group()

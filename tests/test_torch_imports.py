@@ -59,7 +59,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "models.hybrid", "models.rwkv6", "models.encdec",
         "kernels.attention_grad", "data.pipeline", "train.optimizer",
         "train.loop", "train.checkpoint", "train.elastic", "launch.train",
-        "examples.quickstart")} <= \
+        "examples.quickstart", "dist", "dist.context", "dist.sharding",
+        "dist.collectives", "dist.pipeline", "launch.mesh")} <= \
         set(res["modules"])
 
 
