@@ -182,6 +182,26 @@ Phases, each ending in one line:
      (d) ``elastic_restore`` of phase 12's step-10 checkpoint onto the
      mesh: every leaf bit for bit. The process group is destroyed at the
      end;
+ 14. the dry-run. (a) ``python -m repro_torch.launch.dryrun`` for the
+     reference test's four family cells on the (2, 4) test mesh
+     (qwen1.5-0.5b train_4k, rwkv6-3b decode_32k, zamba2-2.7b long_500k,
+     whisper-large-v3 prefill_32k) and for qwen1.5-0.5b's train_4k,
+     prefill_32k and decode_32k and deepseek-v3-671b's prefill_32k on
+     the (16, 16) mesh, each as rank 0 of a fake world in a child process
+     of its own, and ``python -m repro_torch.launch.perf --cell
+     chameleon_decode``, all at once: a child's non-zero exit, or an
+     ``error`` outside a ``seq_parallel`` variant, fails the phase; each
+     cell's roofline terms, bottleneck, mfu, per-rank arguments and
+     temporaries, collectives and trace time printed. (b) qwen1.5-0.5b
+     whole at world 1 on three paths, phase 12's train step (B 8 x S
+     1024), phase 4's prefill (B 1 x 512) and one decode step over that
+     cache: the dry-run's counter over a fake CUDA trace and over the
+     card's run (``flash_attention`` launched in the train step and the
+     prefill, ``flash_decode`` in the decode), flops and bytes equal
+     within 1e-9 relative and the traced arguments within 1% of the bytes
+     the card holds for them; printed beside them the traced temporaries
+     against the card's peak above the arguments and the roofline's
+     step against the measured p50;
 then the ``kernels`` JSON line, the card line, and the result line.
 
 Any failed phase exits non-zero. Nothing runs on the CPU in place of the
@@ -268,6 +288,32 @@ DIST = dict(steps=5, moe_arch="grok-1-314b", moe_tokens=512, moe_cf=4.0,
             moe_fp32_ff=4096, moe_tol={"bfloat16": 2e-2, "float32": 1e-5},
             loss_rel=1e-6)
 DIST_DIR = ROOT / "build" / "chip_smoke_dist"
+# phase 14: the dry-run. (a) its cells, each traced by
+# ``python -m repro_torch.launch.dryrun`` in a child process of its own (all
+# at once: tracing runs on the CPU), and ``launch.perf``'s chameleon_decode:
+# the reference test's four family cells on the (2, 4) test mesh (8 fake
+# ranks) and qwen1.5-0.5b's train, prefill and decode on the (16, 16) mesh
+# (256 fake ranks). deepseek-v3-671b's train_4k traces 5 microbatches of 61
+# layers, about 430 s on a CPU (PERF.md section 6): its prefill_32k
+# stands in, the same arch with the MoE's all-to-all dispatch at 256 ranks.
+# (b) the counter over a fake trace and over the card's run of qwen1.5-0.5b
+# whole at world 1: phase 12's train step, phase 4's prefill and one decode
+# step over that cache, (batch, sequence) each
+DRYRUN_CELLS = [("test", "qwen1.5-0.5b", "train_4k"),
+                ("test", "rwkv6-3b", "decode_32k"),
+                ("test", "zamba2-2.7b", "long_500k"),
+                ("test", "whisper-large-v3", "prefill_32k"),
+                ("single", "qwen1.5-0.5b", "train_4k"),
+                ("single", "qwen1.5-0.5b", "prefill_32k"),
+                ("single", "qwen1.5-0.5b", "decode_32k"),
+                ("single", "deepseek-v3-671b", "prefill_32k")]
+DRYRUN_PERF = "chameleon_decode"
+DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
+DRYRUN_TIMEOUT = 600
+ESTIMATE = {"train": (TRAIN["batch"], TRAIN["seq"]),
+            "prefill": (1, SERVE["prompt"]), "decode": (1, SERVE["prompt"])}
+ESTIMATE_TOL = dict(counts=1e-9, arguments=0.01)
+ESTIMATE_REPS = {"train": 5, "prefill": 10, "decode": 20}
 # decode timings rotate over copies of their inputs that together exceed
 # the H100's 50 MB L2 cache
 ROTATE_BYTES = 75e6
@@ -2569,6 +2615,186 @@ def dist_restore_phase(mesh):
         f"and gathered back in {wall:.1f}s: every leaf bit for bit")
 
 
+# ---------------------------------------------------------------- phase 14
+
+
+def dryrun_children():
+    """Phase 14 (a): ``DRYRUN_CELLS`` and ``launch.perf --cell
+    DRYRUN_PERF``, each in a child process (``python -m``, as a user runs
+    them) writing its own results file; a child's non-zero exit, or an
+    ``error`` outside a ``seq_parallel`` variant, fails the phase. Prints
+    each cell's roofline terms, bottleneck, mfu, per-rank arguments and
+    temporaries, collectives and trace time."""
+    import os
+    import shutil
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    jobs = []
+    for mesh, arch, shape in DRYRUN_CELLS:
+        out = DRYRUN_DIR / f"dryrun-{mesh}-{arch}-{shape}.json"
+        jobs.append((out, ["repro_torch.launch.dryrun", "--arch", arch,
+                           "--shape", shape, "--mesh", mesh, "--out",
+                           str(out)]))
+    out = DRYRUN_DIR / f"perf-{DRYRUN_PERF}.json"
+    jobs.append((out, ["repro_torch.launch.perf", "--cell", DRYRUN_PERF,
+                       "--out", str(out)]))
+    t0 = time.perf_counter()
+    procs = [(out, args, subprocess.Popen(
+        [sys.executable, "-m", *args], env=env, cwd=ROOT, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        for out, args in jobs]
+    results = {}
+    try:
+        for out, args, p in procs:
+            log = p.communicate(timeout=DRYRUN_TIMEOUT)[0]
+            require(p.returncode == 0, f"{' '.join(args)} exited "
+                    f"{p.returncode}:\n{log[-3000:]}")
+            results.update(json.loads(out.read_text()))
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for key, res in results.items():
+        if res["status"] != "ok":
+            require(res.get("overrides", {}).get("seq_parallel", False),
+                    f"dry-run {key}: {res.get('error')}")
+            say(f"  {key}: {res['error'].splitlines()[0]}")
+            continue
+        r, mem, c = res["roofline"], res["memory"], res["collectives"]
+        say(f"  {key}: compute {r['compute_s']:.4g} s, memory "
+            f"{r['memory_s']:.4g} s (floor {r['memory_floor_s']:.4g} s), "
+            f"collective {r['collective_s']:.4g} s -> {r['bottleneck']}, "
+            f"step {r['step_s']:.4g} s, mfu {r['mfu']:.4g}; per rank: "
+            f"arguments {mem['argument_size_in_bytes'] / 1e9:.3f} GB, temp "
+            f"{mem['temp_size_in_bytes'] / 1e9:.3f} GB, "
+            f"{ {k: int(v) for k, v in c['coll_counts'].items()} }, wire "
+            f"{c['total_wire'] / 1e9:.3f} GB {c['wire_by_link']}; "
+            f"replicas {res['replicas']}, traced on {res['traced_on']} in "
+            f"{res['trace_s']} s")
+    return results, wall
+
+
+def estimate_phase():
+    """Phase 14 (b): qwen1.5-0.5b whole at world 1, on ``ESTIMATE``'s three
+    paths (phase 12's train step, phase 4's prefill, one decode step). The
+    dry-run's counter (``roofline.op_cost.CostCounter``) over a fake CUDA
+    trace (``launch.dryrun.trace_cell``) and over the same call on the
+    card, where the kernels launch: flops and bytes equal, and the traced
+    arguments within 1% of what the card holds for the state before the
+    call. Printed beside them: the traced temporaries against the card's
+    peak above the arguments, and the roofline's step against the
+    measured p50. Returns the card runs' launches."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.models.api import build_model
+    from repro_torch.roofline import analysis as ra
+    from repro_torch.roofline.op_cost import CostCounter
+    from repro_torch.train.loop import (init_train_state, make_serve_steps,
+                                        make_train_step)
+    from repro_torch.train.optimizer import OptConfig
+    cfg, opt = get_arch(ARCH), OptConfig(lr=TRAIN["lr"])
+    wants = {"train": "flash_attention", "prefill": "flash_attention",
+             "decode": "flash_decode"}
+    launches = {name: 0 for name in KERNELS}
+    for kind, (B, S) in ESTIMATE.items():
+        shape = ShapeConfig(kind, S, B, kind)
+        tr, meta = dryrun.trace_cell(cfg, shape, None, device="cuda",
+                                     opt_cfg=opt)
+        require(meta["traced_on"] == "cuda", "the trace is not CUDA's")
+        free_cuda()
+        base = torch.cuda.memory_allocated()
+        model = build_model(cfg, "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        inputs = {k: torch.randint(0, cfg.vocab, v.shape, generator=gen,
+                                   dtype=v.dtype, device="cuda")
+                  for k, v in model.input_specs(shape).items()}
+        if kind == "decode":
+            inputs["lengths"].fill_(S - 1)
+        if kind == "train":
+            box = [init_train_state(model, gen, opt)]
+            step = make_train_step(model, opt)
+
+            def call():
+                box[0], _ = step(box[0], inputs)
+        else:
+            with torch.no_grad():
+                params = model.init(gen)
+                cache = model.init_cache(params, inputs, B, S)
+            prefill, decode = make_serve_steps(model, cache)
+
+            def call():
+                if kind == "prefill":
+                    return prefill(params, inputs, cache)
+                return decode(params, cache, inputs["tokens"],
+                              inputs["lengths"])
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        for _ in range(2):                   # allocations, kernel loads
+            call()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with CostCounter() as cc:
+            call()
+        torch.cuda.synchronize()
+        n = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - before
+        times = []
+        for _ in range(ESTIMATE_REPS[kind]):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        p50 = statistics.median(times)
+        require(n[wants[kind]] > 0, f"{kind}: {wants[kind]} never launched")
+        for name in launches:
+            launches[name] += n[name]
+        got, want = cc.totals, tr.totals
+        for k in ("flops", "bytes"):
+            a, b = getattr(got, k), getattr(want, k)
+            require(abs(a - b) <= ESTIMATE_TOL["counts"] * b,
+                    f"{kind}: the card's {k} {a} against the trace's {b}")
+        args = meta["memory"]["argument_size_in_bytes"]
+        require(abs(args - held) <= ESTIMATE_TOL["arguments"] * held,
+                f"{kind}: traced arguments {args} against the card's {held}")
+        rf = ra.summarize(ARCH, kind, "world1", 1, want,
+                          ra.model_flops(cfg, shape),
+                          ra.memory_floor_bytes(cfg, shape, 1, 1))
+        say(f"  {kind} (B {B} x S {S}): flops {want.flops:.6g} and bytes "
+            f"{want.bytes:.6g} on both (cast {want.cast_bytes:.4g}); "
+            f"arguments traced {args / 1e9:.4f} GB, card {held / 1e9:.4f} "
+            f"GB; temp traced {meta['memory']['temp_size_in_bytes'] / 1e9:.4f}"
+            f" GB, card peak above them {peak / 1e9:.4f} GB; roofline step "
+            f"{rf.step_s * 1e3:.4f} ms ({rf.bottleneck}; compute "
+            f"{rf.compute_s * 1e3:.4f}, memory floor "
+            f"{rf.memory_floor_s * 1e3:.4f}, traced bytes "
+            f"{rf.memory_s * 1e3:.4f} ms), "
+            f"measured p50 {p50:.3f} ms, ratio {p50 / (rf.step_s * 1e3):.2f}; "
+            f"launches {n}; traced in {meta['trace_s']:.1f} s")
+        del call, model, inputs
+        if kind == "train":
+            del box, step
+        else:
+            del params, cache, prefill, decode
+    free_cuda()
+    return launches
+
+
+def dryrun_phase():
+    """Phase 14: (a) the dry-run's cells in child processes, then (b) the
+    estimate against the card. Returns (b)'s launches."""
+    results, wall = dryrun_children()
+    say(f"  phase 14 (a): {len(results)} results in {wall:.1f} s wall")
+    return estimate_phase()
+
+
 def lint_phase():
     """``repro_torch.analysis.lint``'s ``run_lint`` on the card, held to
     the committed baseline. Returns the run's launches and wall seconds."""
@@ -2708,6 +2934,13 @@ def main() -> int:
         say(f"phase 13 distribution: the sharded step equals one device's, "
             f"compressed_allreduce, both MoE bodies and the restore "
             f"checked, {time.perf_counter() - t13:.1f}s wall")
+
+        say("phase 14 the dry-run (repro_torch.launch.dryrun, launch.perf) "
+            "and its estimate against the card:")
+        t14 = time.perf_counter()
+        estimate_launches = dryrun_phase()
+        say(f"phase 14 dry-run: every cell traced, the estimate's counts "
+            f"equal the card's, {time.perf_counter() - t14:.1f}s wall")
     except SmokeFailure as e:
         print(f"[chip_smoke] FAIL: {e}", file=sys.stderr)
         return 1
@@ -2736,7 +2969,8 @@ def main() -> int:
                                  "train": train_launches[name],
                                  **{f"train {arch}": n[name] for arch, n
                                     in family_launches.items()},
-                                 "dist": dist_launches[name]},
+                                 "dist": dist_launches[name],
+                                 "estimate": estimate_launches[name]},
             "max_abs_err": main_case["max_abs_err"],
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],

@@ -9,7 +9,8 @@ backward the reduce-scatter), ``reduce_scatter`` (the reverse),
 ``psum`` / ``pmean`` (backward the same sum), ``all_to_all`` (tiled on dim
 0; backward the reverse exchange). Every call runs inside the profiler
 range ``collectives``. A tensor must lie on the group's own device kind:
-CUDA for NCCL, the CPU for gloo; nothing is staged through the host.
+CUDA for NCCL, the CPU for gloo, either for the ``fake`` backend of a
+dry-run (which moves nothing); nothing is staged through the host.
 
 * ``compressed_allreduce`` — int8-quantized mean with error feedback:
   each rank quantizes (value + carried residual) to int8 with one fp32
@@ -23,14 +24,40 @@ CUDA for NCCL, the CPU for gloo; nothing is staged through the host.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.distributed as tdist
 from torch.profiler import record_function
 
 
+_span = threading.local()
+
+
+@contextlib.contextmanager
+def _call():
+    """The span of one process-group call, in the profiler range
+    ``collectives``. Ops that the backend runs inside it are its own (gloo
+    copies a reduce-scatter's result out with ``split`` and ``copy_``
+    while the caller waits); ``in_call`` tells a cost count
+    (``roofline.op_cost``) to leave them out."""
+    with record_function("collectives"):
+        _span.active = True
+        try:
+            yield
+        finally:
+            _span.active = False
+
+
+def in_call() -> bool:
+    """True inside a process-group call of this module, on this thread."""
+    return getattr(_span, "active", False)
+
+
 def _ready(x: torch.Tensor, group) -> torch.Tensor:
     backend = str(tdist.get_backend(group))
-    if (backend == "nccl") != x.is_cuda:
+    if backend != "fake" and (backend == "nccl") != x.is_cuda:
         raise ValueError(f"a {x.device} tensor cannot go through a "
                          f"{backend} collective")
     return x.contiguous()
@@ -43,7 +70,7 @@ def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     x = _ready(x, group)
     n = tdist.get_world_size(group)
     out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
-    with record_function("collectives"):
+    with _call():
         tdist.all_gather_into_tensor(out, x, group=group)
     shape = list(x.shape)
     shape[dim] *= n
@@ -58,7 +85,7 @@ def _scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
                        + shape[dim + 1:]).movedim(dim, 0)
     blocks = _ready(blocks, group)
     out = blocks.new_empty(tuple(blocks.shape[1:]))
-    with record_function("collectives"):
+    with _call():
         tdist.reduce_scatter_tensor(
             out, blocks.view((-1,) + tuple(blocks.shape[2:])),
             op=tdist.ReduceOp.SUM, group=group)
@@ -67,7 +94,7 @@ def _scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 def _sum(x: torch.Tensor, group) -> torch.Tensor:
     x = _ready(x, group).clone()
-    with record_function("collectives"):
+    with _call():
         tdist.all_reduce(x, op=tdist.ReduceOp.SUM, group=group)
     return x
 
@@ -75,7 +102,7 @@ def _sum(x: torch.Tensor, group) -> torch.Tensor:
 def _exchange(x: torch.Tensor, group) -> torch.Tensor:
     x = _ready(x, group)
     out = torch.empty_like(x)
-    with record_function("collectives"):
+    with _call():
         tdist.all_to_all_single(out, x, group=group)
     return out
 

@@ -11,8 +11,10 @@ multi-pod meshes) is data-parallel, except ``stage`` (pipeline stages).
 ``Mesh`` is the port's device mesh: named axes over the ranks of the
 current ``torch.distributed`` world, laid out row-major (rank = the
 coordinates' row-major index), on this rank's device (its CUDA device
-under NCCL, the CPU under gloo). It makes the process group of every
-tuple of axes in mesh order once, on every rank, when it is built
+under NCCL, the CPU under gloo, and under the ``fake`` backend of a
+dry-run the device its trace asks for, CUDA unless told otherwise). It
+makes the process group of every tuple of axes in mesh order once, on
+every rank, when it is built
 (``torch.distributed.new_subgroups_by_enumeration``); a group's ranks,
 sorted as torch keeps them, are then in the order of the reference's
 shard numbers (the first axis major).
@@ -67,10 +69,11 @@ class Mesh:
         return self.groups[key]
 
 
-def build_mesh(shape, axes) -> Mesh:
+def build_mesh(shape, axes, device=None) -> Mesh:
     """A ``Mesh`` of ``shape`` named ``axes`` over the current world,
     whose size must be the product of ``shape``. Every rank must call it,
-    in the same order as every other mesh it builds."""
+    in the same order as every other mesh it builds. ``device`` is the
+    fake backend's (``cuda`` by default); NCCL and gloo fix their own."""
     if not tdist.is_initialized():
         raise RuntimeError("torch.distributed is not initialized: call "
                            "init_process_group before building a mesh")
@@ -79,8 +82,15 @@ def build_mesh(shape, axes) -> Mesh:
     if math.prod(shape) != world or len(shape) != len(axes):
         raise ValueError(f"mesh {shape} {axes} does not cover the world "
                          f"of {world} ranks")
-    device = (torch.device("cuda", torch.cuda.current_device())
-              if tdist.get_backend() == "nccl" else torch.device("cpu"))
+    backend = tdist.get_backend()
+    if backend == "nccl":
+        device = torch.device("cuda", torch.cuda.current_device())
+    elif backend == "fake":
+        device = torch.device(device or "cuda")
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", 0)
+    else:
+        device = torch.device("cpu")
     grid = torch.arange(world).reshape(shape)
     rank = tdist.get_rank()
     coords = dict(zip(axes, (int(c) for c in torch.nonzero(grid == rank)[0])))

@@ -21,7 +21,8 @@ rank's index) and ``group(axes)`` (the process group of those axes):
 are ``shard`` (this rank's block of a full tensor) and ``gather`` (a
 block back to the full tensor, autograd-aware: its backward is the
 reduce-scatter, which gives each owner its slice of the summed
-gradient).
+gradient); ``relayout`` moves a block from one placement to another
+(the sharded serve steps' cache).
 """
 from __future__ import annotations
 
@@ -170,4 +171,30 @@ def gather(x: torch.Tensor, placement: Placement) -> torch.Tensor:
     gathering ranks); summing over ``replica_axes`` is the caller's."""
     for d, axes in placement.dims:
         x = all_gather(x, placement.mesh.group(axes), d)
+    return x
+
+
+def relayout(x: torch.Tensor, src: Placement, dst: Placement) -> torch.Tensor:
+    """This rank's block under ``dst`` from its block ``x`` under ``src``
+    (one mesh), dimension by dimension: where ``dst``'s axes extend
+    ``src``'s, a slice of the block (no traffic); where ``src``'s extend
+    ``dst``'s, an all-gather over the extra axes; otherwise an all-gather
+    over ``src``'s axes and a slice by ``dst``'s. Both numberings are
+    first axis major, so an extension's blocks nest in the shorter one's."""
+    mesh = src.mesh
+    for d in range(x.ndim):
+        s = entry_axes(src.spec[d]) if d < len(src.spec) else ()
+        t = entry_axes(dst.spec[d]) if d < len(dst.spec) else ()
+        if s == t:
+            continue
+        if s != t[:len(s)]:
+            if s[:len(t)] == t:         # gather the extra axes only
+                x = all_gather(x, mesh.group(s[len(t):]), d)
+                continue
+            if s:
+                x = all_gather(x, mesh.group(s), d)
+            s = ()
+        extra = t[len(s):]
+        n = x.shape[d] // axis_size(mesh, extra)
+        x = x.narrow(d, axis_index(mesh, extra) * n, n)
     return x

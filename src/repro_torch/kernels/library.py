@@ -6,8 +6,10 @@ device of the tensors it is given:
   * ``cuda`` — the hand-written Hopper kernel's wrapper, which launches
     the kernel (or raises) and counts the launch;
   * ``cpu`` — the kernel's plain PyTorch version (``kernels.ref``);
-  * fake — allocates the output for ``meta`` and fake tensors, so a model
-    traced on the meta device reaches each kernel as one op.
+  * fake — allocates the output for ``meta`` and fake tensors, in the
+    layout of the kernel that the tensors' device runs, so a model traced
+    on the meta device (or on fake tensors, ``launch.dryrun``) reaches
+    each kernel as one op.
 
 ``flash_attention`` also has an autograd registration, on every device:
 its backward is plain PyTorch (``kernels.attention_grad``), as the TPU
@@ -52,7 +54,12 @@ def _(q, k, v, causal):
 
 @flash_attention.register_fake
 def _(q, k, v, causal):
-    return _fa.out_like(q, v.shape[-1])       # [B,H,Sq,Dv] in q's layout
+    # the layout of the kernel that the device would run: the plain
+    # version's contiguous [B,H,Sq,Dv] on the CPU, the CUDA kernel's q
+    # layout elsewhere (the meta device stands for the card)
+    if q.device.type == "cpu":
+        return q.new_empty(q.shape[:3] + (v.shape[-1],))
+    return _fa.out_like(q, v.shape[-1])
 
 
 def _fa_setup_context(ctx, inputs, output):

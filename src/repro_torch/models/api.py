@@ -23,7 +23,9 @@ family.
 partition spec on its mesh (unsanitized, as the reference's), and
 ``batch_specs(shape)`` the inputs' (the batch over the dp axes, and over
 ``model`` too for the families with no tensor-parallel dim,
-``pure_dp``). ``local_leaves`` names the leaves the forward takes as
+``pure_dp``), and ``cache_specs()`` the cache's, spec for spec the
+reference's (batch over dp, an attention cache's sequence over
+``model``). ``local_leaves`` names the leaves the forward takes as
 this rank's shards (the experts of a sharded MoE dispatch); the sharded
 train step gathers every other leaf on use.
 """
@@ -52,6 +54,7 @@ class Model:
     prefill: Callable                # (params, batch, cache) -> (logits, cache)
     decode_step: Callable            # (params, cache, tokens, lengths) -> ...
     param_specs: Callable            # () -> dict of P (unsanitized)
+    cache_specs: Callable            # () -> dict of P (unsanitized)
     dist: DistContext = no_dist()
     pure_dp: bool = False            # no TP dim: batch shards over model too
     local_leaves: frozenset = frozenset()
@@ -124,6 +127,11 @@ def _fs_specs(abstract, fs):
     return map_with_specs(one, abstract)
 
 
+def _cache_axes(dist: DistContext):
+    """(dp axes, model axis) of the caches' specs: ((), None) off a mesh."""
+    return (dist.dp_axes, dist.model_axis) if dist.active else ((), None)
+
+
 def _plain_ce(logits, targets):
     ce = token_ce(logits, targets).mean()
     return ce, {"ce": ce}
@@ -139,10 +147,12 @@ def _build_lm(cfg: ArchConfig, device: torch.device,
         return transformer.lm_init_cache(cfg, B, max_seq, device)
 
     def prefill(params, batch, cache):
-        return transformer.lm_prefill(params, batch["tokens"], cfg, cache)
+        return transformer.lm_prefill(params, batch["tokens"], cfg, cache,
+                                      dist)
 
     def decode_step(params, cache, tokens, lengths):
-        return transformer.lm_decode_step(params, cache, tokens, lengths, cfg)
+        return transformer.lm_decode_step(params, cache, tokens, lengths, cfg,
+                                          dist)
 
     return Model(cfg=cfg, device=device, family=cfg.family,
                  init_on=lambda gen, dev: transformer.lm_init(gen, cfg, dev,
@@ -150,6 +160,7 @@ def _build_lm(cfg: ArchConfig, device: torch.device,
                  loss=loss, init_cache=init_cache, prefill=prefill,
                  decode_step=decode_step,
                  param_specs=lambda: transformer.lm_param_specs(cfg, dist),
+                 cache_specs=lambda: transformer.lm_cache_specs(cfg, dist),
                  dist=dist,
                  local_leaves=transformer.lm_local_leaves(cfg, dist))
 
@@ -170,13 +181,20 @@ def _build_hybrid(cfg: ArchConfig, device: torch.device,
     def decode_step(params, cache, tokens, lengths):
         return hybrid.hybrid_decode_step(params, cache, tokens, lengths, cfg)
 
+    def cache_specs():
+        dp, m = _cache_axes(dist)
+        return {"mamba": {"conv": P(None, dp, None, None),
+                          "h": P(None, dp, None, None, None)},
+                "kv": {"k": P(None, dp, m, None, None),
+                       "v": P(None, dp, m, None, None)}}
+
     return Model(cfg=cfg, device=device, family=cfg.family,
                  init_on=lambda gen, dev: hybrid.hybrid_init(gen, cfg, dev),
                  loss=loss, init_cache=init_cache, prefill=prefill,
                  decode_step=decode_step,
                  param_specs=lambda: _fs_specs(
                      hybrid.hybrid_init(None, cfg, "meta"), _fsdp_axis(dist)),
-                 dist=dist, pure_dp=True)
+                 cache_specs=cache_specs, dist=dist, pure_dp=True)
 
 
 def _build_rwkv(cfg: ArchConfig, device: torch.device,
@@ -200,6 +218,12 @@ def _build_rwkv(cfg: ArchConfig, device: torch.device,
         logits, st = rwkv6.rwkv6_lm_apply(params, tokens, cfg, cache)
         return logits[:, 0, :], st
 
+    def cache_specs():
+        dp, _ = _cache_axes(dist)
+        return {"tm_x": P(None, dp, None, None),
+                "cm_x": P(None, dp, None, None),
+                "S": P(None, dp, None, None, None)}
+
     return Model(cfg=cfg, device=device, family=cfg.family,
                  init_on=lambda gen, dev: rwkv6.rwkv6_lm_init(gen, cfg, dev),
                  loss=loss, init_cache=init_cache, prefill=prefill,
@@ -207,7 +231,7 @@ def _build_rwkv(cfg: ArchConfig, device: torch.device,
                  param_specs=lambda: _fs_specs(
                      rwkv6.rwkv6_lm_init(None, cfg, "meta"),
                      _fsdp_axis(dist)),
-                 dist=dist, pure_dp=True)
+                 cache_specs=cache_specs, dist=dist, pure_dp=True)
 
 
 def _build_encdec(cfg: ArchConfig, device: torch.device,
@@ -233,6 +257,13 @@ def _build_encdec(cfg: ArchConfig, device: torch.device,
     def decode_step(params, cache, tokens, lengths):
         return encdec.encdec_decode_step(params, cache, tokens, lengths, cfg)
 
+    def cache_specs():
+        dp, m = _cache_axes(dist)
+        return {"self": {"k": P(None, dp, m, None, None),
+                         "v": P(None, dp, m, None, None)},
+                "cross": {"xk": P(None, dp, None, None, None),
+                          "xv": P(None, dp, None, None, None)}}
+
     def param_specs():
         # dense kernels [.., d_in, d_out]: TP on the last dim, FSDP on the
         # second-last; small leaves and vectors replicated
@@ -250,7 +281,7 @@ def _build_encdec(cfg: ArchConfig, device: torch.device,
                  init_on=lambda gen, dev: encdec.encdec_init(gen, cfg, dev),
                  loss=loss, init_cache=init_cache, prefill=prefill,
                  decode_step=decode_step, param_specs=param_specs,
-                 dist=dist)
+                 cache_specs=cache_specs, dist=dist)
 
 
 FAMILIES = {"dense": _build_lm, "vlm": _build_lm, "moe": _build_lm,

@@ -167,15 +167,18 @@ def lm_local_leaves(cfg: ArchConfig, dist: DistContext) -> frozenset:
 # --------------------------------------------------------------- forward
 
 
-def _ffn(p_l, h, cfg: ArchConfig, dist: DistContext = no_dist()):
+def _ffn(p_l, h, cfg: ArchConfig, dist: DistContext = no_dist(),
+         dispatch: str = "auto"):
     """The FFN of one layer on its normed input: (y, MoE aux or None)."""
     if cfg.moe is not None:
-        return moe_block(p_l["moe"], h, cfg, dist)
+        return moe_block(p_l["moe"], h, cfg, dist, dispatch=dispatch)
     return mlp(p_l["mlp"], h, cfg.act, cfg.glu, dt(cfg.compute_dtype)), None
 
 
-def _ffn_residual(p_l, x, cfg: ArchConfig):
-    y, _ = _ffn(p_l, apply_norm(p_l["norm2"], x, cfg.norm), cfg)
+def _ffn_residual(p_l, x, cfg: ArchConfig, dist: DistContext = no_dist(),
+                  dispatch: str = "auto"):
+    y, _ = _ffn(p_l, apply_norm(p_l["norm2"], x, cfg.norm), cfg, dist,
+                dispatch)
     return x + y
 
 
@@ -280,9 +283,22 @@ def lm_init_cache(cfg: ArchConfig, batch: int, max_seq: int, device) -> dict:
             for k, v in c.items()}
 
 
-def lm_prefill(params, tokens, cfg: ArchConfig, cache):
+def lm_cache_specs(cfg: ArchConfig, dist: DistContext) -> dict:
+    """KV cache: batch over dp, sequence over model (the reference's
+    flash-decode SP layout)."""
+    if not dist.active:
+        return map_with_specs(lambda _: P(),
+                              lm_init_cache(cfg, 1, 8, "meta"))
+    m, dp = dist.model_axis, dist.dp_axes
+    if cfg.attention == "mla":
+        return {"c_kv": P(None, dp, m, None), "k_rope": P(None, dp, m, None)}
+    return {"k": P(None, dp, m, None, None), "v": P(None, dp, m, None, None)}
+
+
+def lm_prefill(params, tokens, cfg: ArchConfig, cache,
+               dist: DistContext = no_dist()):
     """Forward + cache fill (in place); returns (last-token logits [B,V],
-    cache)."""
+    cache). On a mesh the MoE FFN runs its sharded dispatch."""
     B, S = tokens.shape
     x = _embed(params, tokens, cfg)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
@@ -292,21 +308,24 @@ def lm_prefill(params, tokens, cfg: ArchConfig, cache):
                         layer_slices(cache, cfg.n_layers)):
         h = apply_norm(p_l["norm1"], x, cfg.norm)
         y, _ = prefill(p_l["attn"], h, cfg, c_l, positions)
-        x = _ffn_residual(p_l, x + y, cfg)
+        x = _ffn_residual(p_l, x + y, cfg, dist)
     x = apply_norm(params["final_norm"], x[:, -1:, :], cfg.norm)
     logits = unembed(x, _out_weight(params, cfg), dt(cfg.compute_dtype))
     return logits[:, 0, :], cache
 
 
-def lm_decode_step(params, cache, tokens, lengths, cfg: ArchConfig):
-    """tokens [B,1], lengths [B] -> (logits [B,V], cache updated in place)."""
+def lm_decode_step(params, cache, tokens, lengths, cfg: ArchConfig,
+                   dist: DistContext = no_dist()):
+    """tokens [B,1], lengths [B] -> (logits [B,V], cache updated in place).
+    On a mesh the MoE FFN runs the ``replicated`` dispatch, as the
+    reference's decode does."""
     x = _embed(params, tokens, cfg)
     decode = attn.mla_decode if cfg.attention == "mla" else attn.gqa_decode
     for p_l, c_l in zip(layer_slices(params["layers"], cfg.n_layers),
                         layer_slices(cache, cfg.n_layers)):
         h = apply_norm(p_l["norm1"], x, cfg.norm)
         y, _ = decode(p_l["attn"], h, cfg, c_l, lengths)
-        x = _ffn_residual(p_l, x + y, cfg)
+        x = _ffn_residual(p_l, x + y, cfg, dist, "replicated")
     x = apply_norm(params["final_norm"], x, cfg.norm)
     logits = unembed(x, _out_weight(params, cfg), dt(cfg.compute_dtype))
     return logits[:, 0, :], cache

@@ -35,6 +35,11 @@ only the traffic differs (the dense layers are not computed
 tensor-parallel). Every collective call runs in the profiler range
 ``collectives`` (``dist.collectives``), inside ``forward`` and
 ``backward`` where the gathers and the MoE exchanges run.
+
+``make_serve_steps`` applies the same placement to prefill and decode,
+with the cache resting in the reference's ``cache_specs``: the
+counterpart of the reference's jitted prefill and decode on a mesh,
+which the dry-run traces.
 """
 from __future__ import annotations
 
@@ -44,10 +49,12 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.bridge import flatten, unflatten
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.dist.collectives import psum
 from repro_torch.dist.sharding import (P, Placement, entry_axes, axis_index,
                                        axis_size, gather, map_with_specs,
-                                       sanitize_spec, shard, tree_shardings)
+                                       relayout, sanitize_spec, shard,
+                                       tree_shardings)
 from repro_torch.models.api import Model
 from repro_torch.train.optimizer import OptConfig, adamw_update, init_opt_state
 
@@ -122,6 +129,12 @@ def init_train_state(model: Model, gen: torch.Generator,
 # ---------------------------------------------------------------- sharded
 
 
+def _empty_placements(tree):
+    """A placement with no mesh for every leaf: ``shard`` and ``gather``
+    are then the identity."""
+    return map_with_specs(lambda a: Placement(None, P()), tree)
+
+
 def train_state_shardings(model: Model, opt_cfg: OptConfig):
     """The ``Placement`` of every leaf of the train state on the model's
     mesh (``train_state_specs``, sanitized to the leaves' shapes); without
@@ -131,7 +144,7 @@ def train_state_shardings(model: Model, opt_cfg: OptConfig):
     state = {"params": abstract,
              "opt": init_opt_state(abstract, opt_cfg)}
     if not model.dist.active:
-        return map_with_specs(lambda a: Placement(None, P()), state)
+        return _empty_placements(state)
     return tree_shardings(model.dist, state, train_state_specs(model))
 
 
@@ -147,6 +160,31 @@ def gather_train_state(state, model: Model, opt_cfg: OptConfig):
     with torch.no_grad():
         return map_with_specs(gather, state,
                               train_state_shardings(model, opt_cfg))
+
+
+def _local_on_use(model: Model, pl: dict) -> dict:
+    """The placement on use of each local leaf (``model.local_leaves``)
+    whose placement ``pl`` is less sharded than the model's collectives
+    take it (ZeRO-1's dp-replicated experts): sliced on use."""
+    mesh = model.dist.mesh if model.dist.active else None
+    if mesh is None:
+        return {}
+    abstract = flatten(model.abstract_params())
+    wanted = flatten(model.param_specs())
+    on_use = {}
+    for k in model.local_leaves:
+        want = sanitize_spec(wanted[k], tuple(abstract[k].shape), mesh)
+        on_use[k] = Placement(mesh, P(*[w if s is None else None for s, w
+                                        in zip(pl[k].spec, want)]))
+    return on_use
+
+
+def _params_on_use(leaves: dict, pl: dict, on_use: dict) -> dict:
+    """The parameters the forward takes: the local leaves as shards
+    (sliced further where ``on_use`` says), every other leaf gathered in
+    full."""
+    return {k: shard(v, on_use[k]) if k in on_use else gather(v, pl[k])
+            for k, v in leaves.items()}
 
 
 def _split_rows(x, spec, mesh):
@@ -187,16 +225,7 @@ def make_train_step(model: Model, opt_cfg: OptConfig, grad_accum: int = 1,
     placed = train_state_shardings(model, opt_cfg)
     pl = flatten(placed["params"])
     opl = flatten(placed["opt"]["m"])
-    # a local leaf whose state placement is less sharded than the model's
-    # collectives take it (ZeRO-1's dp-replicated experts): sliced on use
-    on_use = {}
-    if mesh is not None:
-        abstract = flatten(model.abstract_params())
-        wanted = flatten(model.param_specs())
-        for k in model.local_leaves:
-            want = sanitize_spec(wanted[k], tuple(abstract[k].shape), mesh)
-            on_use[k] = Placement(mesh, P(*[w if s is None else None for s, w
-                                            in zip(pl[k].spec, want)]))
+    on_use = _local_on_use(model, pl)
     # under ZeRO-1, the dims the optimizer shards beyond the parameters
     extra = {k: Placement(mesh, P(*[o if s is None else None for s, o
                                     in zip(pl[k].spec, opl[k].spec)]))
@@ -209,8 +238,7 @@ def make_train_step(model: Model, opt_cfg: OptConfig, grad_accum: int = 1,
     def micro_grads(leaves, micro):
         """(weighted loss, metrics, weight, grads) of one microbatch."""
         with record_function("forward"):
-            full = {k: shard(v, on_use[k]) if k in on_use
-                    else gather(v, pl[k]) for k, v in leaves.items()}
+            full = _params_on_use(leaves, pl, on_use)
             local = {k: _split_rows(v, specs.get(k), mesh)
                      for k, v in micro.items()}
             first = next(iter(micro))
@@ -274,3 +302,106 @@ def make_train_step(model: Model, opt_cfg: OptConfig, grad_accum: int = 1,
         return {"params": unflatten(params), "opt": opt}, metrics
 
     return train_step
+
+
+# ------------------------------------------------------------- serving
+
+
+def param_shardings(model: Model):
+    """The ``Placement`` of every parameter under the sanitized
+    ``model.param_specs()`` (what serving holds); without a mesh, empty
+    placements."""
+    abstract = model.abstract_params()
+    if not model.dist.active:
+        return _empty_placements(abstract)
+    return tree_shardings(model.dist, abstract, model.param_specs())
+
+
+def cache_shardings(model: Model, cache):
+    """The ``Placement`` of every leaf of a full cache (or of anything
+    with its leaves' shapes) on the model's mesh: ``model.cache_specs()``
+    sanitized; without a mesh, empty placements."""
+    if not model.dist.active:
+        return _empty_placements(cache)
+    return tree_shardings(model.dist, cache, model.cache_specs())
+
+
+def shard_cache(cache, model: Model):
+    """This rank's shards of a full cache, as tensors of their own."""
+    return map_with_specs(lambda t, pl: shard(t, pl).clone(), cache,
+                          cache_shardings(model, cache))
+
+
+def gather_cache(cache, model: Model, like):
+    """The full cache from this rank's shards (every rank gets it);
+    ``like``: the full cache or its shapes."""
+    with torch.no_grad():
+        return map_with_specs(gather, cache, cache_shardings(model, like))
+
+
+def make_serve_steps(model: Model, cache_like):
+    """Returns ``(prefill, decode_step)`` with the model's own signatures,
+    ``prefill(params, batch, cache)`` and ``decode_step(params, cache,
+    tokens, lengths)``, each returning ``(logits, cache)``: the
+    counterpart of the reference's ``jax.jit(model.prefill /
+    model.decode_step, in_shardings=...)`` on the model's mesh, the model's
+    own functions without one. ``cache_like`` is the full cache or
+    anything with its leaves' shapes.
+
+    On a mesh it applies ``make_train_step``'s rule of placement:
+
+    * ``params`` are this rank's shards of the sanitized
+      ``model.param_specs()``, every leaf gathered in full on use except
+      the local leaves (the experts), whose shards the MoE dispatch takes;
+    * the inputs are the global batch, the same on every rank; each rank
+      runs its rows, split as ``model.batch_specs`` of a prefill or a
+      decode (sanitized to the inputs) splits ``tokens``;
+    * ``cache`` is this rank's shards of the sanitized
+      ``model.cache_specs()`` (``shard_cache``). On use it is relaid
+      (``dist.sharding.relayout``) to this rank's rows with every other
+      dim whole: the sequence sharded over ``model`` is all-gathered,
+      since no attention here merges over ranks (a sequence-parallel
+      decode merge is item 10b's). The updated cache is relaid back and
+      written into this rank's shards in place, which are returned.
+
+    The logits are this rank's rows."""
+    mesh = model.dist.mesh if model.dist.active else None
+    pl = flatten(param_shardings(model))
+    on_use = _local_on_use(model, pl)
+    cpl = flatten(cache_shardings(model, cache_like))
+    kinds = {kind: model.batch_specs(ShapeConfig(kind, 1, 1, kind))
+             for kind in ("prefill", "decode")}
+
+    def rows(batch, specs):
+        """(this rank's rows of each input, the placement of a cache
+        leaf on use: its rows split as the tokens', every other dim
+        whole)."""
+        sane = {k: sanitize_spec(specs.get(k, P()), tuple(v.shape), mesh)
+                for k, v in batch.items()}
+        local = {k: _split_rows(v, sane[k], mesh)[0]
+                 for k, v in batch.items()}
+        row_axes = sane["tokens"][0] if mesh is not None else None
+        return local, Placement(mesh, P(None, row_axes))
+
+    def call(fn, kind, params, batch, cache):
+        local, use = rows(batch, kinds[kind])
+        rest = flatten(cache)
+        with torch.no_grad():
+            full = unflatten(_params_on_use(flatten(params), pl, on_use))
+            on = {k: relayout(v, cpl[k], use) for k, v in rest.items()}
+            logits, new = fn(full, local, unflatten(on))
+            for k, v in flatten(new).items():
+                if v is rest[k]:        # updated in place, never relaid
+                    continue
+                rest[k].copy_(relayout(v, use, cpl[k]))
+        return logits, cache
+
+    def prefill(params, batch, cache):
+        return call(model.prefill, "prefill", params, batch, cache)
+
+    def decode_step(params, cache, tokens, lengths):
+        return call(lambda p, b, c: model.decode_step(
+            p, c, b["tokens"], b["lengths"]), "decode", params,
+            {"tokens": tokens, "lengths": lengths}, cache)
+
+    return prefill, decode_step

@@ -60,7 +60,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "kernels.attention_grad", "data.pipeline", "train.optimizer",
         "train.loop", "train.checkpoint", "train.elastic", "launch.train",
         "examples.quickstart", "dist", "dist.context", "dist.sharding",
-        "dist.collectives", "dist.pipeline", "launch.mesh")} <= \
+        "dist.collectives", "dist.pipeline", "launch.mesh", "roofline",
+        "roofline.analysis", "roofline.op_cost", "launch.dryrun",
+        "launch.perf")} <= \
         set(res["modules"])
 
 

@@ -1,0 +1,172 @@
+"""The port's serving on a mesh against the reference's: every family's
+``Model.cache_specs`` spec for spec, and the sharded prefill and decode
+steps (``train.loop.make_serve_steps``) on a (2, 4) gloo CPU mesh against
+the reference's jitted ``model.prefill`` / ``model.decode_step`` with
+``in_shardings`` on its Auto (2, 4) mesh, as its dry-run lowers them.
+
+The reference runs in a subprocess with 8 fake XLA devices
+(``helpers.run_with_devices``) and writes its parameters, prompts,
+logits and final caches as numpy; the port runs as 8 gloo ranks
+(``torch_dist_ranks.launch``) from those parameters and prompts."""
+
+import jax
+import numpy as np
+import pytest
+from jax.sharding import PartitionSpec as JP
+
+from helpers import run_with_devices
+from repro.configs import arch_ids, get_arch as jget_arch
+from repro.dist.context import make_dist as jmake_dist
+from repro.models.api import build_model as jbuild_model
+from repro_torch.bridge import flatten
+from repro_torch.configs import get_arch
+from repro_torch.dist.context import make_dist, no_dist
+from repro_torch.models.api import build_model
+from torch_dist_ranks import launch
+
+
+class FakeMesh:
+    """Axis names and sizes, nothing else."""
+
+    def __init__(self, **shape):
+        self.shape = shape
+        self.axis_names = tuple(shape)
+
+
+MESHES = {"2x4": dict(data=2, model=4), "16x16": dict(data=16, model=16),
+          "2x16x16": dict(pod=2, data=16, model=16)}
+
+
+def _jtree(specs):
+    return {"/".join(str(k.key) for k in path): tuple(s)
+            for path, s in jax.tree_util.tree_leaves_with_path(
+                specs, is_leaf=lambda x: isinstance(x, JP))}
+
+
+def _ttree(specs):
+    return {k: tuple(s) for k, s in flatten(specs).items()}
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", arch_ids())
+def test_cache_specs_equal_the_reference(arch, mesh):
+    """Every arch's cache specs on the (2, 4) test mesh and the two
+    production meshes, entry for entry the reference's."""
+    m = FakeMesh(**MESHES[mesh])
+    jm = jbuild_model(jget_arch(arch), jmake_dist(m))
+    tm = build_model(get_arch(arch), "cpu", make_dist(m))
+    assert _ttree(tm.cache_specs()) == _jtree(jm.cache_specs())
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "zamba2-2.7b",
+                                  "rwkv6-3b", "whisper-large-v3"])
+def test_cache_specs_without_a_mesh_replicate(arch):
+    tm = build_model(get_arch(arch).reduced(), "cpu", no_dist())
+    assert all(all(e is None or e == () for e in s)
+               for s in _ttree(tm.cache_specs()).values())
+
+
+# one run a family: dense, moe (MLA and the sharded MoE dispatch), the
+# hybrid, and the audio encoder-decoder (whose prefill leaves the cache
+# unfilled, so its decode starts at length 0)
+RUNS = {
+    "dense": {"arch": "qwen1.5-0.5b", "over": {}, "start": 16},
+    "moe": {"arch": "deepseek-v3-671b", "over": {}, "start": 16},
+    "hybrid": {"arch": "zamba2-2.7b", "over": {}, "start": 16},
+    "audio": {"arch": "whisper-large-v3", "over": {}, "start": 0},
+}
+for _r in RUNS.values():
+    _r.update(B=8, S=32, prompt=16, steps=4)
+
+SERVE = """
+import dataclasses, json
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import AxisType
+from repro.configs import get_arch
+from repro.configs.base import ShapeConfig
+from repro.dist.context import make_dist
+from repro.dist.sharding import sanitize_specs, tree_shardings
+from repro.models.api import build_model
+mesh = jax.make_mesh((2, 4), ('data', 'model'),
+                     axis_types=(AxisType.Auto,) * 2)
+
+def flat(tree, prefix=''):
+    return {prefix + '/'.join(str(k.key) for k in path): np.asarray(leaf)
+            for path, leaf in jax.tree_util.tree_leaves_with_path(tree)}
+
+out = {}
+for name, run in RUNS.items():
+    cfg = dataclasses.replace(get_arch(run['arch']).reduced(), **run['over'])
+    dist = make_dist(mesh)
+    model = build_model(cfg, dist)
+    B, S, pre = run['B'], run['S'], name + '/'
+    params = model.init(jax.random.key(0))
+    out.update(flat(params, pre + 'params/'))
+    batch = {'tokens': jax.random.randint(jax.random.key(1),
+                                          (B, run['prompt']), 0, cfg.vocab)}
+    if cfg.enc_dec is not None:
+        batch['frames'] = jax.random.normal(
+            jax.random.key(2), (B, cfg.enc_dec.n_frames, cfg.d_model)) * 0.5
+    out.update({pre + k: np.asarray(v) for k, v in batch.items()})
+    with mesh:
+        p_sh = tree_shardings(dist, params, model.param_specs())
+        cache = model.init_cache(params, batch, B, S)
+        c_sh = tree_shardings(dist, cache, model.cache_specs())
+        cache = jax.device_put(cache, c_sh)
+        st, sp = model.input_specs(ShapeConfig('p', run['prompt'], B,
+                                               'prefill'))
+        b_sh = tree_shardings(dist, batch, {k: sp[k] for k in batch})
+        params = jax.device_put(params, p_sh)
+        logits, cache = jax.jit(model.prefill, in_shardings=(
+            p_sh, b_sh, c_sh))(params, jax.device_put(batch, b_sh), cache)
+        out[pre + 'prefill'] = np.asarray(logits)
+        st, sp = model.input_specs(ShapeConfig('d', S, B, 'decode'))
+        sp = sanitize_specs(st, sp, mesh)
+        t_sh, l_sh = dist.sharding(sp['tokens']), dist.sharding(sp['lengths'])
+        step = jax.jit(model.decode_step,
+                       in_shardings=(p_sh, c_sh, t_sh, l_sh))
+        lengths = jnp.full((B,), run['start'], jnp.int32)
+        for i in range(run['steps']):
+            tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+            cache = jax.device_put(cache, c_sh)
+            logits, cache = step(params, cache, jax.device_put(tok, t_sh),
+                                 jax.device_put(lengths, l_sh))
+            out[f'{pre}decode/{i}'] = np.asarray(logits)
+            lengths = lengths + 1
+        out.update(flat(cache, pre + 'cache/'))
+np.savez(OUT, **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def serve_ref(tmp_path_factory):
+    out = tmp_path_factory.mktemp("serve_ref") / "ref.npz"
+    run_with_devices(f"OUT = {str(out)!r}\nRUNS = {RUNS!r}\n" + SERVE,
+                     n_devices=8, timeout=600)
+    return out
+
+
+def test_sharded_prefill_and_decode_match_the_reference(serve_ref,
+                                                        tmp_path):
+    """For each family: the last logits of the prefill and of 4 greedy
+    decode steps within 1e-4 of the reference's, the greedy tokens
+    equal, and the final cache (gathered from the shards) within 1e-5 of
+    its scale."""
+    ranks = launch("serve", 8, tmp_path, timeout=300, ref=str(serve_ref),
+                   runs=RUNS)
+    ref = np.load(serve_ref)
+    for r, got in enumerate(ranks):
+        for name, run in RUNS.items():
+            pre = name + "/"
+            calls = ["prefill"] + [f"decode/{i}" for i in range(run["steps"])]
+            for call in calls:
+                a, b = got[pre + call], ref[pre + call]
+                np.testing.assert_allclose(a, b, atol=1e-4, rtol=0,
+                                           err_msg=f"{name} {call} rank {r}")
+                assert (a.argmax(-1) == b.argmax(-1)).all(), (name, call)
+            keys = [k for k in ref.files if k.startswith(pre + "cache/")]
+            assert keys and {k for k in got if k.startswith(pre + "cache/")} \
+                == set(keys)
+            for k in keys:
+                scale = max(np.abs(ref[k]).max(), 1e-30)
+                assert np.abs(got[k] - ref[k]).max() <= 1e-5 * scale, k

@@ -229,8 +229,120 @@ def _case_elastic(params, rank):
     return out
 
 
+def _rows_global(x, spec, mesh):
+    """The global rows of per-rank rows ``x`` split as ``spec`` splits
+    dim 0 (every rank gets them)."""
+    from repro_torch.dist.sharding import P, Placement, relayout
+    return relayout(x, Placement(mesh, P(spec[0])), Placement(mesh, P()))
+
+
+def _case_serve(params, rank):
+    """The sharded prefill and greedy decode steps (``make_serve_steps``)
+    of each run on (2, 4), from the reference's parameters and prompt;
+    the global logits of each call and the gathered final cache."""
+    import torch
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist.context import make_dist
+    from repro_torch.dist.sharding import map_with_specs, sanitize_spec, shard
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import (gather_cache, make_serve_steps,
+                                        param_shardings, shard_cache)
+    ref = np.load(params["ref"])
+    mesh = make_test_mesh((2, 4), ("data", "model"))
+    out = {}
+    for name, run in params["runs"].items():
+        pre = name + "/"
+        cfg = dataclasses.replace(get_arch(run["arch"]).reduced(),
+                                  **run["over"])
+        model = build_model(cfg, "cpu", make_dist(mesh))
+        full = params_from_jax({k[len(pre + "params/"):]: ref[k]
+                                for k in ref.files
+                                if k.startswith(pre + "params/")}, "cpu")
+        p = map_with_specs(lambda t, pl: shard(t, pl).clone(), full,
+                           param_shardings(model))
+        B, S = run["B"], run["S"]
+        batch = {"tokens": torch.from_numpy(ref[pre + "tokens"])}
+        if cfg.enc_dec is not None:
+            batch["frames"] = torch.from_numpy(ref[pre + "frames"])
+        full_cache = model.init_cache(full, batch, B, S)
+        cache = shard_cache(full_cache, model)
+        prefill, decode = make_serve_steps(model, full_cache)
+        spec = {kind: sanitize_spec(model.batch_specs(ShapeConfig(
+            kind, 1, B, kind))["tokens"], (B, 1), mesh)
+            for kind in ("prefill", "decode")}
+        logits, cache = prefill(p, batch, cache)
+        logits = _rows_global(logits, spec["prefill"], mesh)
+        out[pre + "prefill"] = logits.numpy()
+        lengths = torch.full((B,), run["start"], dtype=torch.int32)
+        for i in range(run["steps"]):
+            tok = logits.argmax(-1)[:, None].to(torch.int32)
+            logits, cache = decode(p, cache, tok, lengths)
+            logits = _rows_global(logits, spec["decode"], mesh)
+            out[f"{pre}decode/{i}"] = logits.numpy()
+            lengths = lengths + 1
+        out.update({pre + "cache/" + k: v for k, v in _flat_np(
+            gather_cache(cache, model, full_cache)).items()})
+    return out
+
+
+def _case_count(params, rank):
+    """One train step and one decode step of the reduced ``arch`` on
+    (2, 4) under the dry-run's counter, on real CPU tensors."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist.context import make_dist
+    from repro_torch.dist.sharding import map_with_specs, shard
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.api import build_model
+    from repro_torch.roofline.op_cost import CostCounter
+    from repro_torch.train.loop import (init_train_state, make_serve_steps,
+                                        make_train_step, param_shardings,
+                                        shard_cache, shard_train_state)
+    from repro_torch.train.optimizer import OptConfig
+    cfg = get_arch(params["arch"]).reduced()
+    mesh = make_test_mesh((2, 4), ("data", "model"))
+    model = build_model(cfg, "cpu", make_dist(mesh))
+    gen = torch.Generator().manual_seed(0)
+    opt = OptConfig()
+    out = {}
+    for kind, (S, B) in params["shapes"].items():
+        shape = ShapeConfig(kind, S, B, kind)
+        inputs = {k: torch.randint(0, cfg.vocab, v.shape, generator=gen,
+                                   dtype=v.dtype) if k != "lengths"
+                  else torch.zeros(v.shape, dtype=v.dtype)
+                  for k, v in model.input_specs(shape).items()}
+        if kind == "train":
+            state = shard_train_state(init_train_state(model, gen, opt),
+                                      model, opt)
+            step = make_train_step(model, opt, params["grad_accum"],
+                                   model.batch_specs(shape))
+            with CostCounter() as c:
+                step(state, inputs)
+        else:
+            full = model.init(gen)
+            p = map_with_specs(lambda t, pl: shard(t, pl).clone(), full,
+                               param_shardings(model))
+            full_cache = model.init_cache(full, inputs, B, S)
+            cache = shard_cache(full_cache, model)
+            _, decode = make_serve_steps(model, full_cache)
+            with CostCounter() as c:
+                decode(p, cache, inputs["tokens"], inputs["lengths"])
+        t = c.totals.to_dict()
+        out[f"{kind}/flops"] = np.array(t["flops"])
+        out[f"{kind}/bytes"] = np.array(t["bytes"])
+        for field in ("coll_counts", "coll_wire", "wire_by_group"):
+            for k, v in t[field].items():
+                out[f"{kind}/{field}/{k}"] = np.array(v)
+    return out
+
+
 CASES = {"collectives": _case_collectives, "gpipe": _case_gpipe,
-         "moe": _case_moe, "train": _case_train, "elastic": _case_elastic}
+         "moe": _case_moe, "train": _case_train, "elastic": _case_elastic,
+         "serve": _case_serve, "count": _case_count}
 
 
 def main(case, rank, world, workdir):
