@@ -47,7 +47,19 @@ Phases, each ending in one line:
      last decode lengths. The attention kernels are also checked in fp32
      at every shape phase 6's calibration gives them (the kernel suite's
      and the reduced model differential's, from the constants of
-     ``repro_torch.analysis.calibrate``);
+     ``repro_torch.analysis.calibrate``). ``flash_decode`` is also held
+     with its log-sum-exp output (the same launch) at every shape it is
+     checked at: the output unchanged bit for bit, the lse within 1e-4 x
+     (1 + |lse|) of the plain version's, and where timed, timed with and
+     without it. (b) the sequence-parallel decode's kernel work in one
+     process: qwen1.5-0.5b's decode over decode_32k's cache (B 8, 32,768
+     positions, bf16) cut into the 16 sequence shards of the (16, 16)
+     mesh's model axis, ``flash_decode`` with its lse on each shard at its
+     local lengths and the partials merged in fp32 by
+     ``models.attention.merge_partials``, against one whole-cache call
+     and the plain version (3e-2; lse 1e-4 x (1 + |lse|); the empty row
+     0), with the launch counters reset just before the shard calls and
+     read just after (16), each way timed;
   4. serving: qwen1.5-0.5b at its published width and depth through the
      engine (``repro_torch.launch.serve.main``), with the kernels' launch
      counters reset just before and read just after; then one prefill and
@@ -158,8 +170,10 @@ Phases, each ending in one line:
      semantics on gloo CPU meshes) and the mesh (1, 1) ("data",
      "model"). (a) qwen1.5-0.5b whole in bf16, phase 12's batches (B 8 x
      S 1024, ``--data-order 1``, lr 1e-3): 5 steps of the single-device
-     ``make_train_step`` and of the same on a mesh under FSDP and
-     under ZeRO-1, from one state, in alternating turns, the launch
+     ``make_train_step`` and of the same on a mesh under FSDP, under
+     ZeRO-1 and under ``seq_parallel`` (each with the per-layer gathers;
+     a model axis of 1 has no tensor-parallel plan, so every region is
+     the identity), from one state, in alternating turns, the launch
      counters reset just before and read just after each sharded step;
      every sharded loss and, after the 5 steps, every parameter equal to
      the single device's (bit for bit, or within 1e-6 relative with the
@@ -189,8 +203,9 @@ Phases, each ending in one line:
      prefill_32k and decode_32k and deepseek-v3-671b's prefill_32k on
      the (16, 16) mesh, each as rank 0 of a fake world in a child process
      of its own, and ``python -m repro_torch.launch.perf --cell
-     chameleon_decode``, all at once: a child's non-zero exit, or an
-     ``error`` outside a ``seq_parallel`` variant, fails the phase; each
+     chameleon_decode`` and ``--cell qwen_train --variant seqpar``, all
+     at once: a child's non-zero exit, or a result not ``ok``, fails the
+     phase; each
      cell's roofline terms, bottleneck, mfu, per-rank arguments and
      temporaries, collectives and trace time printed. (b) qwen1.5-0.5b
      whole at world 1 on three paths, phase 12's train step (B 8 x S
@@ -286,7 +301,10 @@ TRAIN_CKPT = ROOT / "build" / "chip_smoke_train"
 # 12's step-10 checkpoint waits
 DIST = dict(steps=5, moe_arch="grok-1-314b", moe_tokens=512, moe_cf=4.0,
             moe_fp32_ff=4096, moe_tol={"bfloat16": 2e-2, "float32": 1e-5},
-            loss_rel=1e-6)
+            loss_rel=1e-6,
+            # the sharded steps beside one device's: make_dist's knobs
+            sharded={"fsdp": {}, "zero1": {"zero1": True},
+                     "seqpar": {"seq_parallel": True}})
 DIST_DIR = ROOT / "build" / "chip_smoke_dist"
 # phase 14: the dry-run. (a) its cells, each traced by
 # ``python -m repro_torch.launch.dryrun`` in a child process of its own (all
@@ -307,7 +325,8 @@ DRYRUN_CELLS = [("test", "qwen1.5-0.5b", "train_4k"),
                 ("single", "qwen1.5-0.5b", "prefill_32k"),
                 ("single", "qwen1.5-0.5b", "decode_32k"),
                 ("single", "deepseek-v3-671b", "prefill_32k")]
-DRYRUN_PERF = "chameleon_decode"
+# launch.perf's jobs: (cell, variant, or None for all of the cell's)
+DRYRUN_PERF = [("chameleon_decode", None), ("qwen_train", "seqpar")]
 DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
 DRYRUN_TIMEOUT = 600
 ESTIMATE = {"train": (TRAIN["batch"], TRAIN["seq"]),
@@ -319,6 +338,16 @@ ESTIMATE_REPS = {"train": 5, "prefill": 10, "decode": 20}
 ROTATE_BYTES = 75e6
 TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
        "flash_decode": {"float32": 2e-5, "bfloat16": 3e-2}}
+# flash_decode's log-sum-exp against its plain version's, fp32 both (the
+# kernel sums in base 2 from prescaled scores): x (1 + |lse|)
+LSE_TOL = 1e-4
+# phase 3 (b): qwen1.5-0.5b's decode over decode_32k's cache (32,768
+# positions, the 8 rows a data rank holds of its 128) cut into the 16
+# sequence shards of the (16, 16) mesh's model axis, in one process; row
+# lengths: empty, one position, a shard's edge and past it, midway, and
+# the whole cache
+SEQ_DECODE = dict(batch=8, seq=32768, shards=16,
+                  lengths=(0, 1, 2048, 2049, 10000, 20480, 32767, 32768))
 KERNELS = {
     "flash_attention": {
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -529,6 +558,20 @@ def check_kernel(name, case, label, dtype_name, timed):
     ok = bool(((g - w).abs() <= tol + tol * w.abs()).all())
     res = {"shape": label, "dtype": dtype_name, "max_abs_err": err,
            "tol": tol, "ok": ok}
+    if name == "flash_decode":
+        # the same launch with its log-sum-exp: the output unchanged, the
+        # lse against the plain version's
+        o, lse = kern(*args, with_lse=True)
+        _, want_lse = ref.decode_attention_lse_ref(*args)
+        torch.cuda.synchronize()
+        fin = torch.isfinite(want_lse)
+        lse_err = (lse - want_lse)[fin].abs().max().item() if fin.any() \
+            else 0.0
+        res["lse_max_abs_err"] = lse_err
+        res["ok"] = ok = ok and torch.equal(o, got) and torch.equal(
+            torch.isfinite(lse), fin) and bool(((lse - want_lse)[fin].abs()
+                                                <= LSE_TOL * (1 + want_lse[
+                                                    fin].abs())).all())
     if timed:
         copies = [args]
         if name == "flash_decode":
@@ -538,10 +581,13 @@ def check_kernel(name, case, label, dtype_name, timed):
             copies += [tuple(t.clone() for t in args)
                        for _ in range(math.ceil(ROTATE_BYTES / per) - 1)]
         res["host_hidden"] = {}
-        for key, make in (
-                ("ms", lambda a: lambda: kern(*a, **kwargs)),
-                ("plain_ms", lambda a: lambda: plain(*a, **kwargs)),
-                ("library_ms", lambda a: library_call(name, a, kwargs))):
+        timings = [("ms", lambda a: lambda: kern(*a, **kwargs)),
+                   ("plain_ms", lambda a: lambda: plain(*a, **kwargs)),
+                   ("library_ms", lambda a: library_call(name, a, kwargs))]
+        if name == "flash_decode":
+            timings.append(("lse_ms", lambda a: lambda: kern(
+                *a, with_lse=True)))
+        for key, make in timings:
             t = device_ms([make(a) for a in copies])
             res[key] = t["ms"]
             res["host_hidden"][key] = t["hidden"]
@@ -558,8 +604,12 @@ def check_kernel(name, case, label, dtype_name, timed):
         res["bound_ms"] = max(by_bytes, by_ops)
         res["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
     say(f"  {name} {label} {dtype_name}: max_abs_err={err:.3g} (tol {tol})"
+        + (f", lse max_abs_err={res['lse_max_abs_err']:.3g} (tol {LSE_TOL}"
+           f" x (1 + |lse|))" if "lse_max_abs_err" in res else "")
         + (f" ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
-           f"library_ms={res['library_ms']:.4f} bound_ms="
+           + (f"with lse ms={res['lse_ms']:.4f} " if "lse_ms" in res
+              else "")
+           + f"library_ms={res['library_ms']:.4f} bound_ms="
            f"{res['bound_ms']:.4f} ({res['bound_by']}); device-only over "
            f"{res['copies']} input copies, host hidden (kernel/plain/"
            f"library): {'/'.join(str(v) for v in res['host_hidden'].values())}"
@@ -567,6 +617,77 @@ def check_kernel(name, case, label, dtype_name, timed):
               if "flushed_ms" in res else "") if timed else "")
         + ("" if ok else "  MISMATCH"))
     return res
+
+
+def seq_decode_check():
+    """Phase 3 (b): the sequence-parallel decode's kernel work in one
+    process (NCCL refuses two ranks on one card): ``SEQ_DECODE``'s cache
+    at qwen1.5-0.5b's full width in bf16, cut into 16 sequence shards as
+    the (16, 16) mesh's model axis rests it; ``flash_decode`` with its
+    log-sum-exp on each shard at its local lengths (clamp(L - r S_r, 0,
+    S_r)), the partials merged in fp32 by ``models.attention.
+    merge_partials``, against one whole-cache call (bf16 tolerance) and
+    the plain version; each timed device-only. Returns the shard calls'
+    launches, counted from 0 just before them."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.attention import merge_partials
+    cfg = get_arch(ARCH)
+    B, S, R = SEQ_DECODE["batch"], SEQ_DECODE["seq"], SEQ_DECODE["shards"]
+    H, KVH, D = cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    (q, kc, vc, lens), _, nbytes, _ = decode_case(
+        B, H, KVH, S, D, torch.bfloat16, list(SEQ_DECODE["lengths"]), gen)
+    Sr = S // R
+    shards = [(kc[:, :, r * Sr:(r + 1) * Sr], vc[:, :, r * Sr:(r + 1) * Sr],
+               (lens - r * Sr).clamp(0, Sr)) for r in range(R)]
+
+    def sharded():
+        parts = [ops.flash_decode_lse(q, k, v, n) for k, v, n in shards]
+        return merge_partials(torch.stack([o for o, _ in parts]),
+                              torch.stack([lse for _, lse in parts]))
+
+    def whole():
+        return ops.flash_decode_lse(q, kc, vc, lens)
+    ops.reset_launch_counts()
+    o, lse = sharded()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    require(launches["flash_decode"] == R, f"seq decode: {launches}")
+    want_o, want_lse = whole()
+    plain_o, _ = ref.decode_attention_lse_ref(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    tol = TOL["flash_decode"]["bfloat16"]
+    got = o.to(q.dtype).float()         # as the decode hands it on
+    fin = torch.isfinite(want_lse)
+    errs = {}
+    for what, w in (("whole-cache kernel", want_o), ("plain", plain_o)):
+        w = w.float()
+        errs[what] = (got - w).abs().max().item()
+        require(bool(((got - w).abs() <= tol + tol * w.abs()).all()),
+                f"seq decode: the merged shards against the {what} call, "
+                f"max abs {errs[what]:.3g} (tol {tol})")
+    lse_err = (lse - want_lse)[fin].abs().max().item()
+    require(torch.equal(torch.isfinite(lse), fin) and bool(
+        ((lse - want_lse)[fin].abs() <= LSE_TOL * (1 + want_lse[fin].abs()))
+        .all()), f"seq decode: merged lse against the whole call's, max "
+        f"abs {lse_err:.3g}")
+    require(not bool(torch.isnan(o).any()) and bool((o[0] == 0).all()),
+            "seq decode: the empty row is not 0")
+    t_shards = device_ms([sharded], iters=20)
+    t_whole = device_ms([whole], iters=20)
+    m = machine()
+    say(f"  seq-parallel decode, {ARCH} B{B} H{H} KVH{KVH} S{S} D{D} bf16, "
+        f"{R} shards of {Sr}, lengths {list(SEQ_DECODE['lengths'])}: merged "
+        f"against the whole-cache kernel max abs {errs['whole-cache kernel']:.3g}"
+        f", against the plain version {errs['plain']:.3g} (tol {tol}); lse "
+        f"max abs {lse_err:.3g} (tol {LSE_TOL} x (1 + |lse|)); the empty row "
+        f"0; launches {launches}; device ms: {R} shard calls and the merge "
+        f"{t_shards['ms']:.4f}, one whole-cache call {t_whole['ms']:.4f}, "
+        f"bound {nbytes / m.hbm_bytes_per_s * 1e3:.4f} (bytes); host hidden "
+        f"{t_shards['hidden']}/{t_whole['hidden']}")
+    return launches
 
 
 def u32_words(n, gen):
@@ -2355,8 +2476,8 @@ def dist_train_phase(mesh):
     runs = {"single": (make_train_step(single, opt),
                        clone_state(state0, grad=True))}
     shape = ShapeConfig("train", S, B, "train")
-    for name, zero1 in (("fsdp", False), ("zero1", True)):
-        model = build_model(cfg, "cuda", make_dist(mesh, zero1=zero1))
+    for name, kw in DIST["sharded"].items():
+        model = build_model(cfg, "cuda", make_dist(mesh, **kw))
         runs[name] = (make_train_step(
             model, opt, batch_specs=model.batch_specs(shape)),
             shard_train_state(state0, model, opt))
@@ -2388,7 +2509,7 @@ def dist_train_phase(mesh):
         f"alternating turns ({card_line()}): single-device losses "
         f"{[round(x, 6) for x in want]}")
     differ = False
-    for name in ("fsdp", "zero1"):
+    for name in DIST["sharded"]:
         got = losses[name]
         rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
         same = got == want
@@ -2402,14 +2523,15 @@ def dist_train_phase(mesh):
     say("  step ms p50 (each step's ms): "
         + ", ".join(f"{n} {statistics.median(v):.1f} "
                     f"{[round(x, 1) for x in v]}" for n, v in ms.items())
-        + "; peak memory allocated during a step (all three states "
+        + "; peak memory allocated during a step (all the runs' states "
         "resident): " + ", ".join(f"{n} {v / 1e9:.2f} GB"
                                   for n, v in peak.items()))
-    require(launches["flash_attention"] == 2 * 2 * cfg.n_layers * steps,
+    require(launches["flash_attention"] == len(DIST["sharded"]) * 2
+            * cfg.n_layers * steps,
             f"dist: flash_attention launched {launches['flash_attention']}"
             f" times in the sharded steps")
     want = flatten(runs["single"][1]["params"])
-    for name in ("fsdp", "zero1"):
+    for name in DIST["sharded"]:
         got = flatten(runs[name][1]["params"])     # full on a world of one
         rels = {k: float((got[k] - w.detach()).abs().max())
                 / max(float(w.abs().max()), 1e-30) for k, w in want.items()}
@@ -2440,7 +2562,7 @@ def dist_train_phase(mesh):
                "variation covers the difference") + ")")
         del outs, a, b
         free_cuda()
-    for name in ("fsdp", "zero1"):
+    for name in DIST["sharded"]:
         step, state = runs[name]
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
@@ -2620,9 +2742,9 @@ def dist_restore_phase(mesh):
 
 def dryrun_children():
     """Phase 14 (a): ``DRYRUN_CELLS`` and ``launch.perf --cell
-    DRYRUN_PERF``, each in a child process (``python -m``, as a user runs
-    them) writing its own results file; a child's non-zero exit, or an
-    ``error`` outside a ``seq_parallel`` variant, fails the phase. Prints
+    DRYRUN_PERF``'s cells and variants, each in a child process (``python
+    -m``, as a user runs them) writing its own results file; a child's
+    non-zero exit, or a result not ``ok``, fails the phase. Prints
     each cell's roofline terms, bottleneck, mfu, per-rank arguments and
     temporaries, collectives and trace time."""
     import os
@@ -2636,9 +2758,11 @@ def dryrun_children():
         jobs.append((out, ["repro_torch.launch.dryrun", "--arch", arch,
                            "--shape", shape, "--mesh", mesh, "--out",
                            str(out)]))
-    out = DRYRUN_DIR / f"perf-{DRYRUN_PERF}.json"
-    jobs.append((out, ["repro_torch.launch.perf", "--cell", DRYRUN_PERF,
-                       "--out", str(out)]))
+    for cell, variant in DRYRUN_PERF:
+        out = DRYRUN_DIR / f"perf-{cell}-{variant}.json"
+        jobs.append((out, ["repro_torch.launch.perf", "--cell", cell,
+                           "--out", str(out)]
+                     + (["--variant", variant] if variant else [])))
     t0 = time.perf_counter()
     procs = [(out, args, subprocess.Popen(
         [sys.executable, "-m", *args], env=env, cwd=ROOT, text=True,
@@ -2658,11 +2782,7 @@ def dryrun_children():
                 p.communicate()
     wall = time.perf_counter() - t0
     for key, res in results.items():
-        if res["status"] != "ok":
-            require(res.get("overrides", {}).get("seq_parallel", False),
-                    f"dry-run {key}: {res.get('error')}")
-            say(f"  {key}: {res['error'].splitlines()[0]}")
-            continue
+        require(res["status"] == "ok", f"dry-run {key}: {res.get('error')}")
         r, mem, c = res["roofline"], res["memory"], res["collectives"]
         say(f"  {key}: compute {r['compute_s']:.4g} s, memory "
             f"{r['memory_s']:.4g} s (floor {r['memory_floor_s']:.4g} s), "
@@ -2853,6 +2973,7 @@ def main() -> int:
 
         say("phase 3 kernels against their plain versions:")
         results = kernel_phase()
+        seq_launches = seq_decode_check()
         say("phase 3 kernels: all agree")
 
         say("phase 4 serving:")
@@ -2970,12 +3091,16 @@ def main() -> int:
                                  **{f"train {arch}": n[name] for arch, n
                                     in family_launches.items()},
                                  "dist": dist_launches[name],
+                                 "seq-parallel decode (16 shards, one "
+                                 "process)": seq_launches[name],
                                  "estimate": estimate_launches[name]},
             "max_abs_err": main_case["max_abs_err"],
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
+            **({"ms_with_lse": main_case["lse_ms"]}
+               if "lse_ms" in main_case else {}),
             "shape": main_case["shape"],
             "checks": results[name]})
     say(f"total {time.perf_counter() - t_start:.1f}s")

@@ -43,7 +43,8 @@ def _flash_attention_flop(q_shape, k_shape, v_shape, *args, out_shape=None,
             + bmm_flop((b * h, s_q, s_k), (b * h, s_k, d_v)))
 
 
-@register_flop_formula(torch.ops.repro_torch.flash_decode)
+@register_flop_formula([torch.ops.repro_torch.flash_decode,
+                       torch.ops.repro_torch.flash_decode_lse])
 def _flash_decode_flop(q_shape, k_shape, v_shape, *args, out_shape=None,
                        **kwargs) -> int:
     """One query row per head against the cache's S positions."""

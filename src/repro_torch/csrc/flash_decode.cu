@@ -57,6 +57,12 @@
 // of static shared memory side by side (D160 at a group of 16), the partials
 // reuse the query heads' buffer after a barrier.
 //
+// The log-sum-exp, for a caller that merges partial outputs over shards of
+// the cache (the sequence-parallel decode): where `lse` is given, the block
+// that writes o[b, h] also writes lse[b, h] = ln sum exp(scores) over the
+// valid positions, (m + log2 l) ln 2 from the state it already holds (the
+// one split's, or the merged one), and -inf where the row has none.
+//
 // Layout: q [B, H, D], k/v [B, KVH, S, D] and o [B, H, D] are passed with
 // their strides and a contiguous last dimension, so the model's cache
 // [B, Smax, KVH, D] goes in as a permute view, never copied.
@@ -74,6 +80,7 @@ constexpr int THREADS = WARPS * 32;
 // rows a lane loads before it uses any: fewer for large groups, whose
 // per-lane state (GT heads x 16 bytes of acc) fills the registers
 constexpr double LOG2E = 1.4426950408889634;
+constexpr float LN2 = 0.6931471805599453f;
 // partials the last block's merge has in flight a thread and output
 constexpr int MERGE_BATCH = 8;
 
@@ -110,6 +117,12 @@ __device__ __forceinline__ void widen(const uint4& raw, float* out,
   }
 }
 
+// ln sum exp of a state (m in log2 units, l the sum of 2^(s - m)); -inf
+// for an empty state (l = 0)
+__device__ __forceinline__ float state_lse(float m, float l) {
+  return l > 0.f ? (m + log2f(l)) * LN2 : -INFINITY;
+}
+
 // Fold state (m2, l2, a2) into (m, l, a); m in log2 units.
 template <int E>
 __device__ __forceinline__ void combine(float& m, float& l, float* a, float m2,
@@ -127,6 +140,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v,
                           const int* __restrict__ lengths, T* __restrict__ o,
+                          float* __restrict__ lse,
                           float* __restrict__ part, int G, int S, int chunk,
                           long long qb, long long qh,
                           long long kb, long long kh, long long ks,
@@ -312,6 +326,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     if (splits == 1) {
       store(o + b * ob + (long long)(kvh * G + g) * oh + d, num / fmaxf(den, 1e-30f));
+      if (lse != nullptr && d == 0)
+        lse[(long long)(b * KVH + kvh) * G + g] = state_lse(mx, den);
     } else {
       // partial p = ((b * KVH + kvh) * splits + split) * G + g:
       // acc at part[p * D + d], (m, l) at part[n_part * D + 2 p]
@@ -368,23 +384,26 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int idx = idx0 + j * THREADS;
-      if (idx < G * D)
+      if (idx < G * D) {
         store(o + b * ob + (long long)(kvh * G + idx / D) * oh + idx % D,
               ao[j] / fmaxf(lo[j], 1e-30f));
+        if (lse != nullptr && idx % D == 0)
+          lse[(long long)(b * KVH + kvh) * G + idx / D] = state_lse(mo[j], lo[j]);
+      }
     }
   }
 }
 
 template <typename T, int D, int GT>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* lengths, void* o, float* part, int* counters,
-                   int B, int KVH, int G, int S, int chunk, int splits,
-                   const long long* st, cudaStream_t stream) {
+                   const int* lengths, void* o, float* lse, float* part,
+                   int* counters, int B, int KVH, int G, int S, int chunk,
+                   int splits, const long long* st, cudaStream_t stream) {
   const float scale_log2 =
       static_cast<float>(LOG2E / std::sqrt(static_cast<double>(D)));
   flash_decode_kernel<T, D, GT><<<dim3(splits, KVH, B), THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lengths, static_cast<T*>(o), part, G, S,
+      static_cast<const T*>(v), lengths, static_cast<T*>(o), lse, part, G, S,
       chunk, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
       st[9], counters, scale_log2);
   return cudaGetLastError();
@@ -393,29 +412,30 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // GT: the group size rounded up to a power of two (padding heads are masked)
 template <typename T, int D>
 cudaError_t dispatch_g(int G, const void* q, const void* k, const void* v,
-                       const int* len, void* o, float* part, int* cnt, int B,
-                       int KVH, int S, int chunk, int splits,
+                       const int* len, void* o, float* lse, float* part,
+                       int* cnt, int B, int KVH, int S, int chunk, int splits,
                        const long long* st, cudaStream_t s) {
-  if (G <= 1) return launch<T, D, 1>(q, k, v, len, o, part, cnt, B, KVH, G, S, chunk, splits, st, s);
-  if (G <= 2) return launch<T, D, 2>(q, k, v, len, o, part, cnt, B, KVH, G, S, chunk, splits, st, s);
-  if (G <= 4) return launch<T, D, 4>(q, k, v, len, o, part, cnt, B, KVH, G, S, chunk, splits, st, s);
-  if (G <= 8) return launch<T, D, 8>(q, k, v, len, o, part, cnt, B, KVH, G, S, chunk, splits, st, s);
-  if (G <= 16) return launch<T, D, 16>(q, k, v, len, o, part, cnt, B, KVH, G, S, chunk, splits, st, s);
+  if (G <= 1) return launch<T, D, 1>(q, k, v, len, o, lse, part, cnt, B, KVH, G, S, chunk, splits, st, s);
+  if (G <= 2) return launch<T, D, 2>(q, k, v, len, o, lse, part, cnt, B, KVH, G, S, chunk, splits, st, s);
+  if (G <= 4) return launch<T, D, 4>(q, k, v, len, o, lse, part, cnt, B, KVH, G, S, chunk, splits, st, s);
+  if (G <= 8) return launch<T, D, 8>(q, k, v, len, o, lse, part, cnt, B, KVH, G, S, chunk, splits, st, s);
+  if (G <= 16) return launch<T, D, 16>(q, k, v, len, o, lse, part, cnt, B, KVH, G, S, chunk, splits, st, s);
   return cudaErrorInvalidValue;
 }
 
 template <typename T>
 cudaError_t dispatch_d(int D, int G, const void* q, const void* k,
-                       const void* v, const int* len, void* o, float* part,
-                       int* cnt, int B, int KVH, int S, int chunk, int splits,
+                       const void* v, const int* len, void* o, float* lse,
+                       float* part, int* cnt, int B, int KVH, int S, int chunk,
+                       int splits,
                        const long long* st, cudaStream_t s) {
   switch (D) {
-    case 16: return dispatch_g<T, 16>(G, q, k, v, len, o, part, cnt, B, KVH, S, chunk, splits, st, s);
-    case 32: return dispatch_g<T, 32>(G, q, k, v, len, o, part, cnt, B, KVH, S, chunk, splits, st, s);
-    case 64: return dispatch_g<T, 64>(G, q, k, v, len, o, part, cnt, B, KVH, S, chunk, splits, st, s);
-    case 80: return dispatch_g<T, 80>(G, q, k, v, len, o, part, cnt, B, KVH, S, chunk, splits, st, s);
-    case 128: return dispatch_g<T, 128>(G, q, k, v, len, o, part, cnt, B, KVH, S, chunk, splits, st, s);
-    case 160: return dispatch_g<T, 160>(G, q, k, v, len, o, part, cnt, B, KVH, S, chunk, splits, st, s);
+    case 16: return dispatch_g<T, 16>(G, q, k, v, len, o, lse, part, cnt, B, KVH, S, chunk, splits, st, s);
+    case 32: return dispatch_g<T, 32>(G, q, k, v, len, o, lse, part, cnt, B, KVH, S, chunk, splits, st, s);
+    case 64: return dispatch_g<T, 64>(G, q, k, v, len, o, lse, part, cnt, B, KVH, S, chunk, splits, st, s);
+    case 80: return dispatch_g<T, 80>(G, q, k, v, len, o, lse, part, cnt, B, KVH, S, chunk, splits, st, s);
+    case 128: return dispatch_g<T, 128>(G, q, k, v, len, o, lse, part, cnt, B, KVH, S, chunk, splits, st, s);
+    case 160: return dispatch_g<T, 160>(G, q, k, v, len, o, lse, part, cnt, B, KVH, S, chunk, splits, st, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -429,10 +449,12 @@ cudaError_t dispatch_d(int D, int G, const void* q, const void* k,
 // entry and 0 again on return (the kernel resets them, so one zeroed buffer
 // serves every call on a stream); with one split both are unused. Strides (in
 // elements): q (batch, head), k (batch, head, sequence), v (batch, head,
-// sequence), o (batch, head): 10 values. One launch; returns
+// sequence), o (batch, head): 10 values. `lse` is null, or fp32 [B, H]
+// (contiguous) for each row's log-sum-exp. One launch; returns
 // cudaGetLastError().
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
-                                const void* lengths, void* o, void* part,
+                                const void* lengths, void* o, void* lse,
+                                void* part,
                                 void* counters, int dtype, int B, int H,
                                 int KVH, int S, int D, int chunk, int splits,
                                 const long long* strides, void* stream) {
@@ -443,11 +465,12 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
   const int G = H / KVH;
   const int* len = static_cast<const int*>(lengths);
   float* p = static_cast<float*>(part);
+  float* ls = static_cast<float*>(lse);
   int* cnt = static_cast<int*>(counters);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_F32)
-    return dispatch_d<float>(D, G, q, k, v, len, o, p, cnt, B, KVH, S, chunk, splits, strides, st);
+    return dispatch_d<float>(D, G, q, k, v, len, o, ls, p, cnt, B, KVH, S, chunk, splits, strides, st);
   if (dtype == DTYPE_BF16)
-    return dispatch_d<__nv_bfloat16>(D, G, q, k, v, len, o, p, cnt, B, KVH, S, chunk, splits, strides, st);
+    return dispatch_d<__nv_bfloat16>(D, G, q, k, v, len, o, ls, p, cnt, B, KVH, S, chunk, splits, strides, st);
   return cudaErrorInvalidValue;
 }

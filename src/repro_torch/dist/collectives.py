@@ -7,8 +7,13 @@ tuple of axes: ``Mesh.group``), and each differentiable as the
 reference's are under ``jax.grad``: ``all_gather`` (tiled, along a dim;
 backward the reduce-scatter), ``reduce_scatter`` (the reverse),
 ``psum`` / ``pmean`` (backward the same sum), ``all_to_all`` (tiled on dim
-0; backward the reverse exchange). Every call runs inside the profiler
-range ``collectives``. A tensor must lie on the group's own device kind:
+0; backward the reverse exchange), and ``pmax`` (no gradient: a shift,
+as a softmax's max). Every call runs inside the profiler range
+``collectives``. Each backward is the transpose of its forward, so a
+sharded program's gradients are the sum of what its ranks' backwards
+give: the tensor-parallel regions of ``models.tp`` are these primitives
+(the all-gather and reduce-scatter over a sequence, the all-reduce
+out of a row-parallel product). A tensor must lie on the group's own device kind:
 CUDA for NCCL, the CPU for gloo, either for the ``fake`` backend of a
 dry-run (which moves nothing); nothing is staged through the host.
 
@@ -169,6 +174,15 @@ def psum(x: torch.Tensor, group) -> torch.Tensor:
 
 def pmean(x: torch.Tensor, group) -> torch.Tensor:
     return psum(x, group) / tdist.get_world_size(group)
+
+
+@torch.no_grad()
+def pmax(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max over the group, without a gradient."""
+    x = _ready(x, group).clone()
+    with _call():
+        tdist.all_reduce(x, op=tdist.ReduceOp.MAX, group=group)
+    return x
 
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:

@@ -1,8 +1,6 @@
 """Distributed context: which mesh axes play which role, plus the
 sharding knobs every layer threads through (``fsdp``, ``zero1``,
-``ep_over_dp``). The port of ``repro.dist.context``, without its
-``seq_parallel``: the port computes no layer sequence-parallel yet, so
-``make_dist`` refuses it.
+``seq_parallel``, ``ep_over_dp``). The port of ``repro.dist.context``.
 
 Axis conventions (see ``launch/mesh.py``): the tensor/expert-parallel
 axis is named ``model``; every other axis (``data``, and ``pod`` on
@@ -23,8 +21,12 @@ shard numbers (the first axis major).
 ``constrain`` marks where the reference constrains an activation's
 sharding and returns the tensor unchanged: in eager PyTorch nothing
 plays GSPMD's role, so the constraint has nothing to tell. The sharded
-paths place and gather explicitly (``dist.sharding``, the
-MoE bodies, ``train.loop.make_train_step``).
+paths place and gather explicitly (``dist.sharding``, the MoE bodies,
+``train.loop.make_train_step``). At the transformer's block boundaries,
+where the reference constrains the residual (to ``P(dp, model, None)``
+under ``seq_parallel``), the row-parallel exit plays the constraint's
+role: a reduce-scatter over the sequence under ``seq_parallel``, else an
+all-reduce (``models.tp``).
 """
 from __future__ import annotations
 
@@ -116,6 +118,7 @@ class DistContext:
     ep_over_dp: bool = False
     fsdp: bool = False
     zero1: bool = False
+    seq_parallel: bool = False
 
     # ------------------------------------------------------- axis sizes
 
@@ -155,15 +158,12 @@ def make_dist(mesh, *, fsdp: bool = True, zero1: bool = False,
                         (gathered on use).
     * ``zero1``       — replicate params over dp but shard optimizer
                         state (see ``train.loop.train_state_specs``).
-    * ``seq_parallel``— refused (``NotImplementedError``): the port
-                        shards no activation's sequence dim yet.
+    * ``seq_parallel``— activations additionally shard their sequence
+                        dim over the model axis between attention/FFN
+                        (the transformer family's train forward).
     * ``ep_over_dp``  — expert parallelism spans the full mesh
                         (dp x model) instead of the model axis only.
     """
-    if seq_parallel:
-        raise NotImplementedError(
-            "seq_parallel: the port computes no layer sequence-parallel "
-            "yet (ROADMAP item 10b)")
     names = tuple(mesh.axis_names)
     model_axis = "model" if "model" in names else None
     dp_axes = tuple(n for n in names if n not in _NON_DP_AXES)
@@ -171,7 +171,8 @@ def make_dist(mesh, *, fsdp: bool = True, zero1: bool = False,
     ep_axes = (dp_axes + model_tuple) if ep_over_dp else model_tuple
     return DistContext(active=True, mesh=mesh, dp_axes=dp_axes,
                        model_axis=model_axis, ep_axes=ep_axes,
-                       ep_over_dp=ep_over_dp, fsdp=fsdp, zero1=zero1)
+                       ep_over_dp=ep_over_dp, fsdp=fsdp, zero1=zero1,
+                       seq_parallel=seq_parallel)
 
 
 def no_dist() -> DistContext:

@@ -92,6 +92,27 @@ def sanitize_spec(spec, shape: Tuple[int, ...], mesh) -> P:
     return P(*out)
 
 
+def split_ways(n: int, axis: str, mesh) -> int:
+    """The ways the sanitized spec ``P(axis)`` splits a dim of ``n``: the
+    axis' size, or 1 where sanitation drops it."""
+    return axis_size(mesh, axis) if sanitize_spec(
+        P(axis), (n,), mesh)[0] is not None else 1
+
+
+def cuts_units(n_units: int, unit: int, axis: str, mesh) -> bool:
+    """Whether the sanitized spec of a dim of ``n_units`` whole units of
+    ``unit`` elements (heads of a head dim) over ``axis`` cuts inside a
+    unit: it splits the dim, but not into whole units."""
+    return n_units % split_ways(n_units * unit, axis, mesh) != 0
+
+
+def keep_axes(spec, axes) -> P:
+    """``spec`` with only its entries on ``axes``: the spec on use of a
+    leaf whose other dims (the dp, FSDP dims) are gathered on use and
+    whose ``axes`` split (``model``) stays this rank's shard."""
+    return P(*[e if e in axes else None for e in spec])
+
+
 def map_with_specs(fn, tree: Any, *specs: Any):
     """``fn(leaf, *specs)`` over a nested dict and dicts of specs (or
     placements) of the same structure; a spec is a leaf, though it is a

@@ -13,7 +13,10 @@ scheduler treats as light and memory-bound (decode), against
 CUDA tensors; the plain version is
 ``repro_torch.kernels.ref.decode_attention_ref``, and
 ``ref.decode_attention_split_ref`` repeats the kernel's split-and-merge
-arithmetic.
+arithmetic. With ``with_lse`` the same launch also writes each row's
+log-sum-exp (``ref.decode_attention_lse_ref`` is its plain version), so
+that a caller can merge the outputs of several shards of a cache
+(``models.attention.merge_partials``).
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ MIN_CHUNK = 64          # ... and at least this many positions
 # each KV head
 LAUNCHES_PER_CALL = 1
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
 
 # per device: int32 counters, one per (batch row, KV head), that the kernel
@@ -73,9 +76,11 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 lengths: torch.Tensor) -> torch.Tensor:
+                 lengths: torch.Tensor, with_lse: bool = False):
     """q [B,H,D], k/v [B,KVH,S,D], lengths [B] -> [B,H,D] in ``q.dtype``,
-    with the scores scaled by 1/sqrt(D) as in the TPU kernel.
+    with the scores scaled by 1/sqrt(D) as in the TPU kernel; with
+    ``with_lse`` also the fp32 [B,H] log-sum-exp of each row's scaled
+    scores over its valid positions (-inf where it has none).
 
     Positions ``>= lengths[b]`` contribute nothing (a length of 0 gives a
     zero output). k and v may be any strided view with a contiguous last
@@ -101,8 +106,10 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{lengths.device}, expected ({B},) on {q.device}")
     lengths = lengths.to(torch.int32).contiguous()
     o = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     if o.numel() == 0:
-        return o
+        return (o, lse) if with_lse else o
     splits, chunk = plan_splits(B, KVH, S, sm_count(q.device.index))
     # the chunks' partial (acc, m, l) in fp32, for the merge
     part = torch.empty(B * H * splits * (D + 2) if splits > 1 else 0,
@@ -112,10 +119,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         *q.stride()[:2], *k.stride()[:3], *v.stride()[:3], *o.stride()[:2])
     fn = build.bind("flash_decode", "flash_decode_fwd", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-             o.data_ptr(), part.data_ptr() if splits > 1 else None,
+             o.data_ptr(), lse.data_ptr() if with_lse else None,
+             part.data_ptr() if splits > 1 else None,
              counters.data_ptr() if splits > 1 else None, code, B, H, KVH,
              S, D, chunk, splits, strides,
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check("flash_decode", err, "flash_decode")
     launches += 1
-    return o
+    return (o, lse) if with_lse else o

@@ -14,8 +14,9 @@ device of the tensors it is given:
 ``flash_attention`` also has an autograd registration, on every device:
 its backward is plain PyTorch (``kernels.attention_grad``), as the TPU
 kernel has none; training runs the kernel forward on the card and that
-backward. ``flash_decode`` and ``chacha20_keystream`` have no training
-caller and no autograd.
+backward. ``flash_decode`` (and its sibling ``flash_decode_lse``, the same
+launch with each row's log-sum-exp as a second output) and
+``chacha20_keystream`` have no training caller and no autograd.
 
 Nothing here catches a failure and falls back. Because each kernel is one
 op, a ``TorchDispatchMode`` (``repro_torch.analysis.regions.segment``) sees
@@ -102,6 +103,27 @@ def _(q, k, v, lengths):
     return q.new_empty(q.shape)
 
 
+@torch.library.custom_op("repro_torch::flash_decode_lse", mutates_args=(),
+                         device_types="cuda")
+def flash_decode_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """``flash_decode`` that also returns the fp32 [B,H] log-sum-exp of
+    each row's scaled scores: the CUDA kernel, in the same launch."""
+    return _fd.flash_decode(q, k, v, lengths, with_lse=True)
+
+
+@flash_decode_lse.register_kernel("cpu")
+def _(q, k, v, lengths):
+    return ref.decode_attention_lse_ref(q, k, v, lengths)
+
+
+@flash_decode_lse.register_fake
+def _(q, k, v, lengths):
+    return q.new_empty(q.shape), q.new_empty(q.shape[:2],
+                                             dtype=torch.float32)
+
+
 # -------------------------------------------------------------- chacha20
 
 
@@ -160,5 +182,6 @@ def _chacha20_flops(key, nonce, counter0, n_blocks):
 KERNEL_FLOPS = {
     "repro_torch::flash_attention": _attention_flops,
     "repro_torch::flash_decode": _decode_flops,
+    "repro_torch::flash_decode_lse": _decode_flops,
     "repro_torch::chacha20_keystream": _chacha20_flops,
 }

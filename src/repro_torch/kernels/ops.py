@@ -34,6 +34,13 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return library.flash_decode(q, k, v, lengths)
 
 
+def flash_decode_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor):
+    """``flash_decode`` and its fp32 [B,H] log-sum-exp: (o, lse), -inf
+    where a row has no valid position (whose o is 0)."""
+    return library.flash_decode_lse(q, k, v, lengths)
+
+
 def chacha20_keystream(key: torch.Tensor, nonce: torch.Tensor, counter0: int,
                        n_blocks: int) -> torch.Tensor:
     """key [8] u32, nonce [3] u32, counter0 (any int, taken mod 2^32) ->
@@ -66,4 +73,5 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["chacha20_encrypt", "chacha20_keystream", "flash_attention",
-           "flash_decode", "launch_counts", "reset_launch_counts"]
+           "flash_decode", "flash_decode_lse", "launch_counts",
+           "reset_launch_counts"]

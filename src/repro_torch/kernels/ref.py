@@ -116,6 +116,27 @@ def decode_attention_ref(q, k, v, lengths, *, scale=None) -> torch.Tensor:
     return o.reshape(B, H, D).to(q.dtype)
 
 
+def decode_attention_lse_ref(q, k, v, lengths, *, scale=None):
+    """(o [B,H,D] in ``q.dtype``, lse [B,H] fp32): the plain version of
+    ``flash_decode`` with its log-sum-exp, ln sum exp of each row's scaled
+    scores over the positions below ``lengths[b]``. Where a row has none,
+    lse is -inf and o is 0, as the kernel gives them. fp32 math (fp64 for
+    fp64 inputs)."""
+    B, H, D = q.shape
+    KVH, S = k.shape[1], k.shape[2]
+    G = H // KVH
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    acc = math_dtype(q)
+    s = torch.einsum("bkgd,bktd->bkgt", q.to(acc).reshape(B, KVH, G, D),
+                     k.to(acc)) * scale
+    valid = torch.arange(S, device=q.device)[None, :] < lengths[:, None]
+    s = s.masked_fill(~valid[:, None, None, :], -math.inf)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - torch.where(torch.isfinite(lse), lse, 0)[..., None])
+    o = torch.einsum("bkgt,bktd->bkgd", p, v.to(acc))
+    return o.reshape(B, H, D).to(q.dtype), lse.reshape(B, H).float()
+
+
 def decode_attention_split_ref(q, k, v, lengths, *, chunk: int,
                                scale=None) -> torch.Tensor:
     """The split-KV decode kernel's arithmetic (``csrc/flash_decode.cu``) in

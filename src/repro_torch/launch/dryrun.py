@@ -9,9 +9,10 @@ analyses. The port runs the step itself, on fake tensors
 rank 0 of a fake world (``launch.mesh.fake_world``: the ``fake`` backend,
 whose collectives move nothing), and counts what it runs
 (``roofline.op_cost.CostCounter``): flops, bytes, collectives with their
-groups, and the live bytes of the storages it makes. Under gather on use
-(``train.loop``) every rank runs the same program on its own rows and
-shards, so rank 0's counts are every rank's.
+groups, and the live bytes of the storages it makes. Every rank runs the
+same program on its own rows and shards (``train.loop``: the transformer
+family tensor-parallel over ``model``, the others gathering on use), so
+rank 0's counts are every rank's.
 
   * ``single`` = (16, 16) ("data", "model") over 256 ranks, ``multi`` =
     (2, 16, 16) ("pod", "data", "model") over 512, ``test`` = (2, 4) over
@@ -69,6 +70,7 @@ from repro_torch.dist.sharding import (Placement, axis_size, map_with_specs,
 from repro_torch.launch.mesh import (fake_world, make_production_mesh,
                                      make_test_mesh)
 from repro_torch.models.api import build_model
+from repro_torch.models.tp import plan as tp_plan
 from repro_torch.roofline import analysis as roofline
 from repro_torch.roofline.op_cost import CostCounter, CostTotals
 from repro_torch.train.loop import (cache_shardings, make_serve_steps,
@@ -243,10 +245,15 @@ def trace_cell(cfg, shape, mesh_kind=None, dist_kw=None, grad_accum=1,
                 specs[k], tuple(t.shape), mesh)) for k, t in inputs.items()}
             args += sum(math.prod(_local_shape(t, split[k]))
                         * t.element_size() for k, t in inputs.items())
-            # the ranks that run the same rows: gather on use computes each
-            # share of the rows on all of them
-            replicas = world // math.prod(axis_size(mesh, a)
-                                          for _, a in split["tokens"].dims)
+            # the ranks that compute the same rows: those that split the
+            # rows, and under tensor parallelism the model axis, compute
+            # distinct work; gather on use computes each share of the rows
+            # on every rank of the other axes
+            split_ranks = math.prod(axis_size(mesh, a)
+                                    for _, a in split["tokens"].dims)
+            if model.per_layer_gathers and tp_plan(cfg, dist) is not None:
+                split_ranks *= dist.model_size
+            replicas = world // split_ranks
             out = sum(t.numel() * t.element_size()
                       for t in tree_leaves(tr.result)
                       if isinstance(t, torch.Tensor))

@@ -3,10 +3,12 @@
 sets, traced by ``repro_torch.launch.dryrun.run_cell``; results
 accumulate in ``results/perf_cuda.json``. A variant that cannot be
 traced ends as ``status: error``, as the reference's ``run_cell`` records
-it (the ``seq_parallel`` variants: ``make_dist`` refuses them until the
-port computes a layer sequence-parallel).
+it. The ``seq_parallel`` variants run the transformer's residual
+sequence-sharded over ``model`` between blocks (``models.tp``).
 
   PYTHONPATH=src python -m repro_torch.launch.perf --cell deepseek_train
+  PYTHONPATH=src python -m repro_torch.launch.perf --cell qwen_train \
+      --variant seqpar
   PYTHONPATH=src python -m repro_torch.launch.perf --all
 """
 import argparse
@@ -98,6 +100,15 @@ CELLS = {
             ("zero1+ga2", {"zero1": True, "fsdp": False, "grad_accum": 2}),
         ],
     },
+    # the seq-parallel lever on the smallest dense train cell (about a
+    # seventh of chameleon_train's trace time)
+    "qwen_train": {
+        "arch": "qwen1.5-0.5b", "shape": "train_4k",
+        "variants": [
+            ("baseline", {}),
+            ("seqpar", {"seq_parallel": True}),
+        ],
+    },
 }
 
 
@@ -105,6 +116,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--cell", default=None, choices=list(CELLS))
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--variant", default=None,
+                    help="only this variant of the cell")
     ap.add_argument("--mesh", default="single")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="the device of the fake tensors (no card needed)")
@@ -118,6 +131,8 @@ def main(argv=None):
     for name in names:
         spec = CELLS[name]
         for vname, overrides in spec["variants"]:
+            if args.variant not in (None, vname):
+                continue
             key = f"{name}|{vname}|{args.mesh}"
             if results.get(key, {}).get("status") == "ok":
                 print(f"[skip cached] {key}")

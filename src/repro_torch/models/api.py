@@ -25,13 +25,20 @@ partition spec on its mesh (unsanitized, as the reference's), and
 ``model`` too for the families with no tensor-parallel dim,
 ``pure_dp``), and ``cache_specs()`` the cache's, spec for spec the
 reference's (batch over dp, an attention cache's sequence over
-``model``). ``local_leaves`` names the leaves the forward takes as
-this rank's shards (the experts of a sharded MoE dispatch); the sharded
-train step gathers every other leaf on use.
+``model``). ``local_leaves`` maps the leaves the forward takes as this
+rank's shards to the spec it takes each at: the experts of a sharded MoE
+dispatch, and for the transformer family on a ``model`` axis of more
+than one rank the leaves it computes tensor-parallel (``models.tp``:
+q/k/v and ``wo`` by heads, the MLP by columns, the embeddings by
+vocabulary rows); the sharded steps gather every other leaf on use. The
+transformer family's ``loss``, ``prefill`` and ``decode_step`` also take
+``on_use`` (``tp.OnUse``: the per-layer gather, and whether the cache
+rests sequence-sharded), which the sharded steps pass
+(``per_layer_gathers``).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable
 
 import torch
@@ -40,6 +47,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.context import DistContext, no_dist
 from repro_torch.dist.sharding import P, map_with_specs
 from repro_torch.models import encdec, hybrid, rwkv6, transformer
+from repro_torch.models.tp import OnUse
 from repro_torch.models.layers import dt, token_ce
 
 
@@ -57,7 +65,8 @@ class Model:
     cache_specs: Callable            # () -> dict of P (unsanitized)
     dist: DistContext = no_dist()
     pure_dp: bool = False            # no TP dim: batch shards over model too
-    local_leaves: frozenset = frozenset()
+    local_leaves: dict = field(default_factory=dict)  # leaf -> spec on use
+    per_layer_gathers: bool = False  # loss/prefill/decode_step take on_use
 
     def init(self, gen: torch.Generator) -> dict:
         """Random parameters on the model's device, from ``gen``."""
@@ -139,20 +148,21 @@ def _plain_ce(logits, targets):
 
 def _build_lm(cfg: ArchConfig, device: torch.device,
               dist: DistContext) -> Model:
-    def loss(params, batch):
+    def loss(params, batch, on_use=OnUse()):
         return transformer.lm_loss(params, batch["tokens"], batch["targets"],
-                                   cfg, remat="full", dist=dist)
+                                   cfg, remat="full", dist=dist,
+                                   on_use=on_use)
 
     def init_cache(params, batch, B, max_seq):
         return transformer.lm_init_cache(cfg, B, max_seq, device)
 
-    def prefill(params, batch, cache):
+    def prefill(params, batch, cache, on_use=OnUse()):
         return transformer.lm_prefill(params, batch["tokens"], cfg, cache,
-                                      dist)
+                                      dist, on_use)
 
-    def decode_step(params, cache, tokens, lengths):
+    def decode_step(params, cache, tokens, lengths, on_use=OnUse()):
         return transformer.lm_decode_step(params, cache, tokens, lengths, cfg,
-                                          dist)
+                                          dist, on_use)
 
     return Model(cfg=cfg, device=device, family=cfg.family,
                  init_on=lambda gen, dev: transformer.lm_init(gen, cfg, dev,
@@ -162,7 +172,8 @@ def _build_lm(cfg: ArchConfig, device: torch.device,
                  param_specs=lambda: transformer.lm_param_specs(cfg, dist),
                  cache_specs=lambda: transformer.lm_cache_specs(cfg, dist),
                  dist=dist,
-                 local_leaves=transformer.lm_local_leaves(cfg, dist))
+                 local_leaves=transformer.lm_local_leaves(cfg, dist),
+                 per_layer_gathers=True)
 
 
 def _build_hybrid(cfg: ArchConfig, device: torch.device,

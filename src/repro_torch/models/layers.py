@@ -6,6 +6,16 @@ leading layer axis. The ``init_*`` functions give parameter specs
 (``Draw``s), which ``materialize`` allocates and fills. ``compute_dtype`` casting happens at matmul inputs;
 norms, softmax and logits run in fp32.
 
+On a mesh with a ``model`` axis (``models.tp``) the dense forms are
+split by the caller: a column-parallel ``dense`` or ``mlp`` takes this
+rank's columns of ``up``/``gate`` and its rows of ``down`` and gives
+partial sums, which the caller sums over the axis. The vocabulary-parallel
+forms are here: ``vocab_embed`` (this rank's rows of the table, the other
+ids masked; the caller sums), ``vocab_ce_sum`` (the cross-entropy over the
+vocabulary shards: the max and the sum of exp reduced over the axis, the
+target's logit from the rank that holds it) and ``vocab_logits`` (the
+shards' logits gathered into full rows).
+
 ``chunked_attention`` has no counterpart here: on the port's path the
 ``flash_attention`` kernel (``repro_torch.kernels``) and its plain version
 take its place. ``full_attention`` and ``decode_attention`` stay as the
@@ -22,6 +32,8 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
+
+from repro_torch.dist.collectives import all_gather, pmax, psum
 
 # ---------------------------------------------------------------- dtypes
 
@@ -237,6 +249,8 @@ def init_mlp(d: int, d_ff: int, glu: bool) -> dict:
 
 def mlp(p: dict, x: torch.Tensor, act: str, glu: bool,
         compute_dtype) -> torch.Tensor:
+    """The MLP; on ``up``/``gate`` columns and the matching ``down`` rows
+    of a tensor-parallel split, this rank's partial sums of it."""
     h = dense(p["up"], x, compute_dtype)
     if glu:
         h = ACTS[act](dense(p["gate"], x, compute_dtype)) * h
@@ -317,6 +331,49 @@ def token_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     logits [..., V] fp32, targets [...] integer ids -> [...]."""
     gold = logits.gather(-1, targets[..., None].long())[..., 0]
     return torch.logsumexp(logits, dim=-1) - gold
+
+
+def _vocab_rows(w: torch.Tensor, ids: torch.Tensor, rank: int):
+    """(each id's row index in this rank's block ``w`` of the vocabulary,
+    clamped into it; whether the block holds the id)."""
+    n = w.shape[0]
+    local = ids.long() - rank * n
+    own = (local >= 0) & (local < n)
+    return local.clamp(0, n - 1), own
+
+
+def vocab_embed(w: torch.Tensor, ids: torch.Tensor, rank: int,
+                compute_dtype) -> torch.Tensor:
+    """This rank's share of the embedding of ``ids``: the rows its block
+    ``w`` of the table holds, zeros for the other ids; the sum over the
+    vocabulary's shards is the lookup."""
+    local, own = _vocab_rows(w, ids, rank)
+    rows = torch.where(own[..., None], w[local], 0)
+    return rows.to(compute_dtype)
+
+
+def vocab_ce_sum(x: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,
+                 compute_dtype, group, rank: int) -> torch.Tensor:
+    """The summed cross-entropy of x [B,c,d] against ``targets`` with the
+    unembedding split over ``group`` by vocabulary rows (``w``: this
+    rank's block): its logits [B,c,V/n] in fp32, their max over the group
+    (a shift without gradient), the sum of exp and the target's logit
+    summed over the group in one all-reduce, logsumexp - logit."""
+    logits = unembed(x, w, compute_dtype)
+    m = pmax(logits.detach().amax(-1), group)
+    local, own = _vocab_rows(w, targets, rank)
+    gold = torch.where(own, logits.gather(-1, local[..., None])[..., 0], 0)
+    se, gold = psum(torch.stack([torch.exp(logits - m[..., None]).sum(-1),
+                                 gold]), group)
+    return (m + torch.log(se) - gold).sum()
+
+
+def vocab_logits(x: torch.Tensor, w: torch.Tensor, compute_dtype,
+                 group) -> torch.Tensor:
+    """Full fp32 logits rows from this rank's block ``w`` of the
+    unembedding: its columns, gathered over the vocabulary's shards."""
+    logits = unembed(x, w, compute_dtype)
+    return all_gather(logits, group, logits.dim() - 1)
 
 
 def init_embedding(vocab: int, d: int) -> Draw:

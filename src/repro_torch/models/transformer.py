@@ -25,23 +25,35 @@ registered backward (``kernels.library``).
 On a mesh (``dist``): ``lm_param_specs`` gives the reference's layout of
 every leaf (TP over ``model`` on head/ff dims, FSDP over the first dp
 axis on d_model dims), ``lm_init`` lays the experts out for
-``dist.ep_size``, the layers call ``dist.constrain`` where the reference
-does, and the MoE FFN runs its explicit dispatch (``moe.moe_block``).
-The dense leaves reach the forward whole (``train.loop`` gathers them on
-use); ``lm_local_leaves`` names the leaves the forward takes as this
-rank's shards.
+``dist.ep_size``, and the MoE FFN runs its explicit dispatch
+(``moe.moe_block``). With a ``model`` axis of more than one rank the
+layers compute that layout (``models.tp``): attention on this rank's
+heads, the dense MLP on its columns, the embedding, the cross-entropy
+and the logits on its rows of the vocabulary, each row-parallel product
+summed over the axis where the reference constrains the residual; under
+``seq_parallel`` the residual between blocks (and after the embedding)
+is this rank's block of the sequence. ``lm_local_leaves`` names the
+leaves the forward takes as this rank's shards, with the spec of each;
+the sharded steps (``train.loop``) hand every other leaf over whole, a
+layer's leaves inside the layer loop (``tp.OnUse.layer``: one layer's
+weights gathered at a time, again in the backward under ``remat``
+"full"), and say whether the cache rests sharded over ``model`` on its
+sequence (``tp.OnUse.cache_seq``), which prefill fills and the decode
+reads in place (``models.attention``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.bridge import flatten
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.context import DistContext, no_dist
-from repro_torch.dist.sharding import P, map_with_specs
+from repro_torch.dist.sharding import P, keep_axes, map_with_specs
 from repro_torch.models import attention as attn
+from repro_torch.models import tp as tpm
 from repro_torch.models.layers import (
     apply_norm, dt, init_embedding, init_mlp, init_norm, materialize, mlp,
-    remat_fn, token_ce, unembed,
+    remat_fn, token_ce, unembed, vocab_ce_sum, vocab_embed, vocab_logits,
 )
 from repro_torch.models.moe import moe_block, moe_init, moe_param_specs
 
@@ -154,14 +166,21 @@ def _norm_spec(cfg, stack):
     return s
 
 
-def lm_local_leaves(cfg: ArchConfig, dist: DistContext) -> frozenset:
-    """The leaves the forward takes as this rank's shards, because it runs
-    their collectives itself: the experts, when the MoE dispatch is
-    sharded (a model axis of more than 1)."""
-    if cfg.moe is None or not dist.active or dist.model_size == 1:
-        return frozenset()
-    return frozenset(f"layers/moe/{k}" for k in ("up", "down", "gate")
-                     if k != "gate" or cfg.glu)
+def lm_local_leaves(cfg: ArchConfig, dist: DistContext) -> dict:
+    """The leaves the forward takes as this rank's shards (with a model
+    axis of more than 1), each with the spec it takes it at: the experts
+    at theirs (the MoE dispatch gathers their dp dims itself), and the
+    leaves of the tensor-parallel plan (``tp.local_leaves``) at their
+    ``model`` split alone (their dp dims gathered on use)."""
+    if not dist.active or dist.model_size == 1:
+        return {}
+    specs = flatten(lm_param_specs(cfg, dist))
+    out = {f"layers/moe/{k}": specs[f"layers/moe/{k}"]
+           for k in ("up", "down", "gate")
+           if cfg.moe is not None and (k != "gate" or cfg.glu)}
+    for k in tpm.local_leaves(cfg, dist):
+        out[k] = keep_axes(specs[k], (dist.model_axis,))
+    return out
 
 
 # --------------------------------------------------------------- forward
@@ -175,11 +194,20 @@ def _ffn(p_l, h, cfg: ArchConfig, dist: DistContext = no_dist(),
     return mlp(p_l["mlp"], h, cfg.act, cfg.glu, dt(cfg.compute_dtype)), None
 
 
+def _leave(tp, y, split: bool, seq: bool = False):
+    """A block's output on the residual: the sum of this rank's partial
+    sums where the block is ``split`` over the axis, else (computed whole
+    on every rank) this rank's block of it under ``seq``."""
+    if tp is None:
+        return y
+    return tp.exit(y, seq) if split else tp.block(y, seq)
+
+
 def _ffn_residual(p_l, x, cfg: ArchConfig, dist: DistContext = no_dist(),
-                  dispatch: str = "auto"):
+                  dispatch: str = "auto", tp=None):
     y, _ = _ffn(p_l, apply_norm(p_l["norm2"], x, cfg.norm), cfg, dist,
                 dispatch)
-    return x + y
+    return x + _leave(tp, y, tp is not None and tp.ffn)
 
 
 def _out_weight(params, cfg: ArchConfig):
@@ -190,21 +218,49 @@ def _embed(params, tokens, cfg: ArchConfig):
     return params["embed"][tokens].to(dt(cfg.compute_dtype))
 
 
+def _embed_tp(params, tokens, cfg: ArchConfig, tp, seq: bool = False):
+    """The embedding of ``tokens``: under ``tp.vocab`` this rank's rows of
+    the table, summed over the axis (this rank's block of the sequence
+    under ``seq``)."""
+    if tp is None or not tp.vocab:
+        return _leave(tp, _embed(params, tokens, cfg), False, seq)
+    return tp.exit(vocab_embed(params["embed"], tokens, tp.rank,
+                               dt(cfg.compute_dtype)), seq)
+
+
+def _logits(params, x, cfg: ArchConfig, tp):
+    """fp32 logits [B,S,V] of x: gathered from the vocabulary's shards
+    under ``tp.vocab``."""
+    w, cdt = _out_weight(params, cfg), dt(cfg.compute_dtype)
+    if tp is not None and tp.vocab:
+        return vocab_logits(x, w, cdt, tp.group)
+    return unembed(x, w, cdt)
+
+
 def _positions(tokens):
     B, S = tokens.shape
     return torch.arange(S, device=tokens.device).expand(B, S)
 
 
 def _layer_fwd(p_l, x, positions, cfg: ArchConfig,
-               dist: DistContext = no_dist()):
-    """One layer over the whole sequence: (x, MoE aux or None)."""
-    xs = P(dist.dp_axes, None, None) if dist.active else None
-    forward = attn.mla_forward if cfg.attention == "mla" \
-        else attn.gqa_forward
+               dist: DistContext = no_dist(), tp=None, seq: bool = False,
+               layer=None):
+    """One layer over the whole sequence: (x, MoE aux or None). ``layer``
+    turns the layer's parameters as they rest into what it takes (the
+    per-layer gather); under ``tp`` its blocks run tensor-parallel, and
+    under ``seq`` x is this rank's block of the sequence."""
+    if layer is not None:
+        p_l = layer(p_l)
     h = apply_norm(p_l["norm1"], x, cfg.norm)
-    x = dist.constrain(x + forward(p_l["attn"], h, cfg, positions), xs)
-    y, aux = _ffn(p_l, apply_norm(p_l["norm2"], x, cfg.norm), cfg, dist)
-    return dist.constrain(x + y, xs), aux
+    h = h if tp is None else tp.enter(h, seq)
+    if cfg.attention == "mla":
+        y = attn.mla_forward(p_l["attn"], h, cfg, positions)
+    else:
+        y = attn.gqa_forward(p_l["attn"], h, cfg, positions, tp=tp)
+    x = x + _leave(tp, y, tp is not None and tp.heads, seq)
+    h = apply_norm(p_l["norm2"], x, cfg.norm)
+    y, aux = _ffn(p_l, h if tp is None else tp.enter(h, seq), cfg, dist)
+    return x + _leave(tp, y, tp is not None and tp.ffn, seq), aux
 
 
 def _zero_aux(device) -> dict:
@@ -213,22 +269,28 @@ def _zero_aux(device) -> dict:
 
 
 def lm_backbone(params, tokens, cfg: ArchConfig, remat: str = "none",
-                positions=None, dist: DistContext = no_dist()):
+                positions=None, dist: DistContext = no_dist(),
+                on_use: tpm.OnUse = tpm.OnUse()):
     """tokens [B,S] -> (hidden [B,S,d] after the final norm, aux: the MoE
     losses and drop fraction summed over the layers, zeros without MoE).
-    ``remat`` ("none", "dots" or "full") applies per layer."""
-    x = _embed(params, tokens, cfg)
-    if dist.active:
-        x = dist.constrain(x, P(dist.dp_axes, None, None))
+    ``remat`` ("none", "dots" or "full") applies per layer, and the
+    per-layer gather (``on_use.layer``) inside it. Under ``seq_parallel``
+    (where the sequence divides the model axis) the layers run on this
+    rank's block of the sequence, gathered whole after the final norm."""
+    tp = tpm.plan(cfg, dist)
+    seq = tp is not None and tp.seq and tokens.shape[1] % tp.size == 0
+    x = _embed_tp(params, tokens, cfg, tp, seq)
     if positions is None:
         positions = _positions(tokens)
     aux = _zero_aux(tokens.device)
     layer = remat_fn(_layer_fwd, remat)
     for p_l in layer_slices(params["layers"], cfg.n_layers):
-        x, aux_l = layer(p_l, x, positions, cfg, dist)
+        x, aux_l = layer(p_l, x, positions, cfg, dist, tp, seq,
+                         on_use.layer)
         if aux_l is not None:
             aux = {k: aux[k] + aux_l[k] for k in aux}
-    return apply_norm(params["final_norm"], x, cfg.norm), aux
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return (tp.enter(x, True) if seq else x), aux
 
 
 def lm_forward(params, tokens, cfg: ArchConfig, remat: str = "none"):
@@ -245,22 +307,27 @@ def _ce_sum(x, w, targets, cdt):
 
 def lm_loss(params, tokens, targets, cfg: ArchConfig, remat: str = "full",
             loss_chunk: int = 512, lb_coef: float = 0.01,
-            z_coef: float = 1e-4, dist: DistContext = no_dist()):
+            z_coef: float = 1e-4, dist: DistContext = no_dist(),
+            on_use: tpm.OnUse = tpm.OnUse()):
     """Sequence-chunked cross-entropy: chunks of ``min(loss_chunk, S)``
     positions (which must divide S, as the reference's reshape needs),
-    each under checkpoint, so logits never live at [B,S,V]. The MoE aux
+    each under checkpoint, so logits never live at [B,S,V] (under a
+    vocabulary split, at [B,c,V/M]: ``layers.vocab_ce_sum``). The MoE aux
     losses are added with ``lb_coef`` and ``z_coef`` over the layers.
     Returns (loss, metrics)."""
     B, S = tokens.shape
-    x, aux = lm_backbone(params, tokens, cfg, remat, dist=dist)
+    x, aux = lm_backbone(params, tokens, cfg, remat, dist=dist,
+                         on_use=on_use)
     w = _out_weight(params, cfg)
     c = min(loss_chunk, S)
     if S % c:
         raise ValueError(f"lm_loss: loss_chunk {c} does not divide the "
                          f"sequence length {S}")
     cdt = dt(cfg.compute_dtype)
-    ce_sum = remat_fn(_ce_sum, "full")
-    tot = sum(ce_sum(x[:, i:i + c], w, targets[:, i:i + c], cdt)
+    tp = tpm.plan(cfg, dist)
+    extra = (tp.group, tp.rank) if tp is not None and tp.vocab else ()
+    ce_sum = remat_fn(vocab_ce_sum if extra else _ce_sum, "full")
+    tot = sum(ce_sum(x[:, i:i + c], w, targets[:, i:i + c], cdt, *extra)
               for i in range(0, S, c))
     ce = tot / (B * S)
     L = cfg.n_layers
@@ -295,40 +362,55 @@ def lm_cache_specs(cfg: ArchConfig, dist: DistContext) -> dict:
     return {"k": P(None, dp, m, None, None), "v": P(None, dp, m, None, None)}
 
 
+def _serve_layers(params, x, cfg: ArchConfig, cache, dist, on_use, attend,
+                  dispatch: str):
+    """The layers of a prefill or a decode step: ``attend(p, h, c_l, tp,
+    cache_seq) -> (y, cache)`` per layer, then the FFN; the final norm
+    and the logits of the last position, [B,V] fp32."""
+    tp = tpm.plan(cfg, dist)
+    for p_l, c_l in zip(layer_slices(params["layers"], cfg.n_layers),
+                        layer_slices(cache, cfg.n_layers)):
+        p_l = on_use.layer(p_l)
+        h = apply_norm(p_l["norm1"], x, cfg.norm)
+        y, _ = attend(p_l["attn"], h, c_l, tp, on_use.cache_seq)
+        x = x + _leave(tp, y, tp is not None and tp.heads)
+        x = _ffn_residual(p_l, x, cfg, dist, dispatch, tp)
+    x = apply_norm(params["final_norm"], x[:, -1:, :], cfg.norm)
+    return _logits(params, x, cfg, tp)[:, 0, :]
+
+
 def lm_prefill(params, tokens, cfg: ArchConfig, cache,
-               dist: DistContext = no_dist()):
+               dist: DistContext = no_dist(),
+               on_use: tpm.OnUse = tpm.OnUse()):
     """Forward + cache fill (in place); returns (last-token logits [B,V],
-    cache). On a mesh the MoE FFN runs its sharded dispatch."""
+    cache). On a mesh the MoE FFN runs its sharded dispatch, and the
+    layers run tensor-parallel (``models.tp``)."""
     B, S = tokens.shape
-    x = _embed(params, tokens, cfg)
+    x = _embed_tp(params, tokens, cfg, tpm.plan(cfg, dist))
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     prefill = attn.mla_prefill if cfg.attention == "mla" \
         else attn.gqa_prefill
-    for p_l, c_l in zip(layer_slices(params["layers"], cfg.n_layers),
-                        layer_slices(cache, cfg.n_layers)):
-        h = apply_norm(p_l["norm1"], x, cfg.norm)
-        y, _ = prefill(p_l["attn"], h, cfg, c_l, positions)
-        x = _ffn_residual(p_l, x + y, cfg, dist)
-    x = apply_norm(params["final_norm"], x[:, -1:, :], cfg.norm)
-    logits = unembed(x, _out_weight(params, cfg), dt(cfg.compute_dtype))
-    return logits[:, 0, :], cache
+    logits = _serve_layers(
+        params, x, cfg, cache, dist, on_use,
+        lambda p, h, c_l, tp, cs: prefill(p, h, cfg, c_l, positions, tp, cs),
+        "auto")
+    return logits, cache
 
 
 def lm_decode_step(params, cache, tokens, lengths, cfg: ArchConfig,
-                   dist: DistContext = no_dist()):
+                   dist: DistContext = no_dist(),
+                   on_use: tpm.OnUse = tpm.OnUse()):
     """tokens [B,1], lengths [B] -> (logits [B,V], cache updated in place).
     On a mesh the MoE FFN runs the ``replicated`` dispatch, as the
-    reference's decode does."""
-    x = _embed(params, tokens, cfg)
+    reference's decode does, and attention the sequence-parallel decode
+    where the cache rests sharded on its sequence (``on_use.cache_seq``)."""
+    x = _embed_tp(params, tokens, cfg, tpm.plan(cfg, dist))
     decode = attn.mla_decode if cfg.attention == "mla" else attn.gqa_decode
-    for p_l, c_l in zip(layer_slices(params["layers"], cfg.n_layers),
-                        layer_slices(cache, cfg.n_layers)):
-        h = apply_norm(p_l["norm1"], x, cfg.norm)
-        y, _ = decode(p_l["attn"], h, cfg, c_l, lengths)
-        x = _ffn_residual(p_l, x + y, cfg, dist, "replicated")
-    x = apply_norm(params["final_norm"], x, cfg.norm)
-    logits = unembed(x, _out_weight(params, cfg), dt(cfg.compute_dtype))
-    return logits[:, 0, :], cache
+    logits = _serve_layers(
+        params, x, cfg, cache, dist, on_use,
+        lambda p, h, c_l, tp, cs: decode(p, h, cfg, c_l, lengths, tp, cs),
+        "replicated")
+    return logits, cache
 
 
 # ------------------------------------------------- optional: MTP head

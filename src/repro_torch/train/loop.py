@@ -18,23 +18,36 @@ layers to GSPMD, it places and gathers:
 
 1. each microbatch is split over the batch spec's axes (the dp axes;
    the rows of a rank's share, the same on every rank of the other
-   axes), and each rank runs the single-device model on its share;
-2. every leaf is all-gathered in full before use (``dist.sharding.gather``,
-   whose backward reduce-scatters the gradient to its owners), except
-   the leaves the model's own explicit collectives take as shards (the
-   sharded MoE's experts); each rank's loss is weighted by its share of
+   axes), and each rank runs the model on its share;
+2. each leaf is relaid on use (``dist.sharding.relayout``: all-gathers,
+   whose backward reduce-scatters the gradient to its owners, and
+   slices) from where it rests to where the forward takes it: the
+   leaves the model computes on as this rank's shards
+   (``model.local_leaves``: the sharded MoE's experts, and the
+   transformer family's tensor-parallel leaves, which keep their
+   ``model`` split and have their dp dims gathered) at their specs,
+   every other leaf whole. The transformer family's layer leaves are
+   relaid inside the layer loop, one layer at a time (``tp.OnUse``), so
+   the peak holds one layer's weights and remat "full" gathers them
+   again in the backward. Each rank's loss is weighted by its share of
    the global batch over its replicas, so the summed gradients are those
-   of the reference's mean over the global batch, and what the gathers'
-   backward has not summed is all-reduced over the leaf's replica axes;
+   of the reference's mean over the global batch (every collective's
+   backward being its transpose, the model ranks' contributions to a
+   tensor-parallel product add up in the gathers' and the regions'
+   backward), and what those have not summed is all-reduced over the
+   leaf's replica axes;
 3. AdamW runs on the owner's shard with the global gradient norm; under
    ZeRO-1 on the optimizer's shards, followed by one all-gather of the
    parameters.
 
 The semantics are the reference's: the same loss and the same update;
-only the traffic differs (the dense layers are not computed
-tensor-parallel). Every collective call runs in the profiler range
-``collectives`` (``dist.collectives``), inside ``forward`` and
-``backward`` where the gathers and the MoE exchanges run.
+only the traffic differs. The transformer family computes the dense
+layers tensor-parallel over ``model`` (and sequence-parallel under
+``seq_parallel``, ``models.tp``); the other families compute the same
+rows on every rank of ``model``. Every collective call runs in the
+profiler range ``collectives`` (``dist.collectives``), inside ``forward``
+and ``backward`` where the gathers, the regions and the MoE exchanges
+run.
 
 ``make_serve_steps`` applies the same placement to prefill and decode,
 with the cache resting in the reference's ``cache_specs``: the
@@ -43,6 +56,7 @@ which the dry-run traces.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -56,6 +70,7 @@ from repro_torch.dist.sharding import (P, Placement, entry_axes, axis_index,
                                        relayout, sanitize_spec, shard,
                                        tree_shardings)
 from repro_torch.models.api import Model
+from repro_torch.models.tp import OnUse
 from repro_torch.train.optimizer import OptConfig, adamw_update, init_opt_state
 
 
@@ -162,29 +177,43 @@ def gather_train_state(state, model: Model, opt_cfg: OptConfig):
                               train_state_shardings(model, opt_cfg))
 
 
-def _local_on_use(model: Model, pl: dict) -> dict:
-    """The placement on use of each local leaf (``model.local_leaves``)
-    whose placement ``pl`` is less sharded than the model's collectives
-    take it (ZeRO-1's dp-replicated experts): sliced on use."""
+def _use_placements(model: Model, pl: dict) -> dict:
+    """The placement each leaf is taken at on use: the local leaves at
+    their specs (``model.local_leaves``, sanitized), every other leaf
+    whole. Without a mesh, the empty placements ``pl``."""
     mesh = model.dist.mesh if model.dist.active else None
     if mesh is None:
-        return {}
+        return pl
     abstract = flatten(model.abstract_params())
-    wanted = flatten(model.param_specs())
-    on_use = {}
-    for k in model.local_leaves:
-        want = sanitize_spec(wanted[k], tuple(abstract[k].shape), mesh)
-        on_use[k] = Placement(mesh, P(*[w if s is None else None for s, w
-                                        in zip(pl[k].spec, want)]))
-    return on_use
+    return {k: Placement(mesh, sanitize_spec(
+        model.local_leaves.get(k, P()), tuple(abstract[k].shape), mesh))
+        for k in pl}
 
 
-def _params_on_use(leaves: dict, pl: dict, on_use: dict) -> dict:
-    """The parameters the forward takes: the local leaves as shards
-    (sliced further where ``on_use`` says), every other leaf gathered in
-    full."""
-    return {k: shard(v, on_use[k]) if k in on_use else gather(v, pl[k])
-            for k, v in leaves.items()}
+def _without_layer(p: Placement) -> Placement:
+    """A stacked leaf's placement for one layer's slice."""
+    return Placement(p.mesh, P(*p.spec[1:]))
+
+
+def _params_on_use(leaves: dict, pl: dict, use: dict, per_layer: bool):
+    """(the parameters the forward takes, the ``OnUse`` it takes them
+    with): each leaf relaid from where it rests (``pl``) to where the
+    forward takes it (``use``); where ``per_layer``, a layer leaf a layer
+    at a time, by the per-layer gather inside the layer loop."""
+    def later(k):
+        return per_layer and k.startswith("layers/")
+    now = {k: v if later(k) else relayout(v, pl[k], use[k])
+           for k, v in leaves.items()}
+    if not per_layer:
+        return unflatten(now), OnUse()
+    inner = {k[len("layers/"):]: (_without_layer(pl[k]),
+                                  _without_layer(use[k]))
+             for k in leaves if later(k)}
+
+    def layer(p_l):
+        return unflatten({k: relayout(v, *inner[k])
+                          for k, v in flatten(p_l).items()})
+    return unflatten(now), OnUse(layer=layer)
 
 
 def _split_rows(x, spec, mesh):
@@ -225,7 +254,7 @@ def make_train_step(model: Model, opt_cfg: OptConfig, grad_accum: int = 1,
     placed = train_state_shardings(model, opt_cfg)
     pl = flatten(placed["params"])
     opl = flatten(placed["opt"]["m"])
-    on_use = _local_on_use(model, pl)
+    use = _use_placements(model, pl)
     # under ZeRO-1, the dims the optimizer shards beyond the parameters
     extra = {k: Placement(mesh, P(*[o if s is None else None for s, o
                                     in zip(pl[k].spec, opl[k].spec)]))
@@ -238,15 +267,17 @@ def make_train_step(model: Model, opt_cfg: OptConfig, grad_accum: int = 1,
     def micro_grads(leaves, micro):
         """(weighted loss, metrics, weight, grads) of one microbatch."""
         with record_function("forward"):
-            full = _params_on_use(leaves, pl, on_use)
+            params, on_use = _params_on_use(leaves, pl, use,
+                                            model.per_layer_gathers)
             local = {k: _split_rows(v, specs.get(k), mesh)
                      for k, v in micro.items()}
             first = next(iter(micro))
             rows, shares = local[first][0].shape[0], local[first][1]
             # this rank's share of the global microbatch over its replicas
             weight = rows / micro[first].shape[0] / (world_size / shares)
-            loss, metrics = model.loss(
-                unflatten(full), {k: v for k, (v, _) in local.items()})
+            batch = {k: v for k, (v, _) in local.items()}
+            loss, metrics = model.loss(params, batch, on_use) \
+                if model.per_layer_gathers else model.loss(params, batch)
             loss = loss * weight
         with record_function("backward"):
             grads = torch.autograd.grad(loss, list(leaves.values()))
@@ -351,24 +382,32 @@ def make_serve_steps(model: Model, cache_like):
     On a mesh it applies ``make_train_step``'s rule of placement:
 
     * ``params`` are this rank's shards of the sanitized
-      ``model.param_specs()``, every leaf gathered in full on use except
-      the local leaves (the experts), whose shards the MoE dispatch takes;
+      ``model.param_specs()``, each relaid on use to where the forward
+      takes it (the local leaves as shards, every other leaf whole; the
+      transformer family's layer leaves one layer at a time);
     * the inputs are the global batch, the same on every rank; each rank
       runs its rows, split as ``model.batch_specs`` of a prefill or a
       decode (sanitized to the inputs) splits ``tokens``;
     * ``cache`` is this rank's shards of the sanitized
-      ``model.cache_specs()`` (``shard_cache``). On use it is relaid
-      (``dist.sharding.relayout``) to this rank's rows with every other
-      dim whole: the sequence sharded over ``model`` is all-gathered,
-      since no attention here merges over ranks (a sequence-parallel
-      decode merge is item 10b's). The updated cache is relaid back and
-      written into this rank's shards in place, which are returned.
+      ``model.cache_specs()`` (``shard_cache``). The transformer family
+      reads and writes them in place: prefill sends its heads' K/V to the
+      ranks that hold their positions and the decode is
+      sequence-parallel, where the cache's sequence rests sharded over
+      ``model`` (``models.attention``). For the other families the cache
+      is relaid (``dist.sharding.relayout``) to this rank's rows with
+      every other dim whole, and the updated cache relaid back into this
+      rank's shards in place. The shards are returned.
 
     The logits are this rank's rows."""
     mesh = model.dist.mesh if model.dist.active else None
     pl = flatten(param_shardings(model))
-    on_use = _local_on_use(model, pl)
+    use = _use_placements(model, pl)
     cpl = flatten(cache_shardings(model, cache_like))
+    per_layer = model.per_layer_gathers
+    # the transformer's cache rests sharded over model on its sequence
+    m = model.dist.model_axis
+    cache_seq = per_layer and model.dist.model_size > 1 and all(
+        m in entry_axes(p.spec[2]) for p in cpl.values())
     kinds = {kind: model.batch_specs(ShapeConfig(kind, 1, 1, kind))
              for kind in ("prefill", "decode")}
 
@@ -384,24 +423,29 @@ def make_serve_steps(model: Model, cache_like):
         return local, Placement(mesh, P(None, row_axes))
 
     def call(fn, kind, params, batch, cache):
-        local, use = rows(batch, kinds[kind])
-        rest = flatten(cache)
+        local, rows_use = rows(batch, kinds[kind])
         with torch.no_grad():
-            full = unflatten(_params_on_use(flatten(params), pl, on_use))
-            on = {k: relayout(v, cpl[k], use) for k, v in rest.items()}
+            full, on_use = _params_on_use(flatten(params), pl, use,
+                                          per_layer)
+            if per_layer:
+                logits, _ = fn(full, local, cache, dataclasses.replace(
+                    on_use, cache_seq=cache_seq))
+                return logits, cache
+            rest = flatten(cache)
+            on = {k: relayout(v, cpl[k], rows_use) for k, v in rest.items()}
             logits, new = fn(full, local, unflatten(on))
             for k, v in flatten(new).items():
                 if v is rest[k]:        # updated in place, never relaid
                     continue
-                rest[k].copy_(relayout(v, use, cpl[k]))
+                rest[k].copy_(relayout(v, rows_use, cpl[k]))
         return logits, cache
 
     def prefill(params, batch, cache):
         return call(model.prefill, "prefill", params, batch, cache)
 
     def decode_step(params, cache, tokens, lengths):
-        return call(lambda p, b, c: model.decode_step(
-            p, c, b["tokens"], b["lengths"]), "decode", params,
+        return call(lambda p, b, c, *on_use: model.decode_step(
+            p, c, b["tokens"], b["lengths"], *on_use), "decode", params,
             {"tokens": tokens, "lengths": lengths}, cache)
 
     return prefill, decode_step

@@ -109,17 +109,21 @@ def test_make_dist_roles_match_reference(shape, axes, kw):
     mesh = FakeMesh(**dict(zip(axes, shape)))
     j, t = jmake_dist(mesh, **kw), make_dist(mesh, **kw)
     for f in ("active", "dp_axes", "model_axis", "ep_axes", "ep_over_dp",
-              "fsdp", "zero1", "dp_size", "model_size",
+              "fsdp", "zero1", "seq_parallel", "dp_size", "model_size",
               "ep_size"):
         assert getattr(t, f) == getattr(j, f), f
     assert jno_dist().ep_size == no_dist().ep_size == 1
 
 
-def test_make_dist_refuses_seq_parallel():
-    """The port computes no layer sequence-parallel, so a context that
-    asks for it is refused rather than silently run unsharded."""
-    with pytest.raises(NotImplementedError, match="seq_parallel"):
-        make_dist(FakeMesh(data=2, model=4), seq_parallel=True)
+def test_make_dist_carries_seq_parallel():
+    """``seq_parallel`` is a knob of the context, as the reference's: off
+    by default, carried when asked for, with every other role unchanged."""
+    mesh = FakeMesh(data=2, model=4)
+    on, off = make_dist(mesh, seq_parallel=True), make_dist(mesh)
+    assert on.seq_parallel is jmake_dist(mesh, seq_parallel=True).seq_parallel
+    assert on.seq_parallel and not off.seq_parallel and not no_dist().seq_parallel
+    for f in ("dp_axes", "model_axis", "ep_axes", "fsdp", "zero1"):
+        assert getattr(on, f) == getattr(off, f), f
 
 
 def test_constrain_is_the_identity():

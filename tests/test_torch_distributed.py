@@ -141,7 +141,8 @@ mesh = mesh_of((2, 4), ('data', 'model'))
 out = {}
 for name, run in RUNS.items():
     cfg = dataclasses.replace(get_arch(run['arch']).reduced(), **run['over'])
-    model = build_model(cfg, make_dist(mesh, zero1=run['zero1']))
+    model = build_model(cfg, make_dist(mesh, zero1=run['zero1'],
+                                       seq_parallel=run['seq_parallel']))
     opt = OptConfig(lr=1e-3)
     batch = {'tokens': jax.random.randint(jax.random.key(1), (8, 64), 0, cfg.vocab),
              'targets': jax.random.randint(jax.random.key(2), (8, 64), 0, cfg.vocab)}
@@ -166,17 +167,29 @@ for name, run in RUNS.items():
 np.savez(OUT, **out)
 """
 
-# the sharded train step's runs: FSDP and ZeRO-1, dense and MoE. The
-# ZeRO-1 qwen has a vocab of 1,024 so that its embedding (65,536
-# elements) reaches the 2^16 at which ZeRO-1 shards optimizer state; the
-# ZeRO-1 grok slices its dp-replicated experts for the MoE body on use.
+# the sharded train step's runs: FSDP and ZeRO-1, dense and MoE, each
+# tensor-parallel over 'model'. The ZeRO-1 qwen has a vocab of 1,024 so
+# that its embedding (65,536 elements) reaches the 2^16 at which ZeRO-1
+# shards optimizer state; the ZeRO-1 grok slices its dp-replicated experts
+# for the MoE body on use. qwen and grok under seq_parallel (the residual
+# between blocks sequence-sharded over 'model', the MoE reading the
+# gathered sequence), and qwen with 2 K/V heads on a
+# 'model' axis of 4, where the spec cuts a K/V head (wk/wv whole on use).
 TRAIN_RUNS = {
     "qwen-fsdp": dict(arch="qwen1.5-0.5b", over={}, zero1=False),
     "qwen-zero1": dict(arch="qwen1.5-0.5b", over=dict(vocab=1024),
                        zero1=True),
     "grok-fsdp": dict(arch="grok-1-314b", over={}, zero1=False),
     "grok-zero1": dict(arch="grok-1-314b", over={}, zero1=True),
+    "qwen-seqpar": dict(arch="qwen1.5-0.5b", over={}, zero1=False,
+                        seq_parallel=True),
+    "grok-seqpar": dict(arch="grok-1-314b", over={}, zero1=False,
+                        seq_parallel=True),
+    "qwen-kv2": dict(arch="qwen1.5-0.5b", over=dict(kv_heads=2),
+                     zero1=False),
 }
+for _run in TRAIN_RUNS.values():
+    _run.setdefault("seq_parallel", False)
 
 # name -> the reference's moe_block settings: reduced deepseek-v3 at 8
 # experts top-2 and reduced grok (4 experts), at a capacity factor where
@@ -374,8 +387,9 @@ def _single_device_run(ref, name, rows=None):
 @pytest.mark.parametrize("name", list(TRAIN_RUNS))
 def test_sharded_train_step_matches_reference(train_ref, tmp_path, name):
     """Reduced qwen1.5-0.5b and the moe family's grok on (2, 4) with
-    grad_accum=2, FSDP and ZeRO-1, against the reference's Auto-mesh run
-    of the same settings: the 4 losses within 1e-4 relative and the 4
+    grad_accum=2, FSDP and ZeRO-1 (and both under seq_parallel, and qwen
+    with 2 K/V heads), each tensor-parallel over 'model', against the
+    reference's Auto-mesh run of the same settings: the 4 losses within 1e-4 relative and the 4
     gradient norms within 1e-5 relative; after step 4, each leaf's update
     (final minus initial) within 1e-3 of the reference's in norm, Adam's
     two moments within 1e-5 of each leaf's largest (they scale with the

@@ -74,9 +74,10 @@ def test_cells_hold_to_the_reference(port_cells, ref_cells, arch):
     decode never reads and ``jax.jit`` drops from the program's
     arguments); the traced flops per rank within [0.5, 2] of the
     compiled program's once divided by ``replicas``, the ranks that
-    compute the same rows under gather on use (the reference splits
-    them over ``model`` too). A lost layer or microbatch would halve
-    the ratio."""
+    compute the same rows (under gather on use the other families'
+    ``model`` axis; the reference splits their rows over ``model`` too,
+    and the transformer family's the port does too). A lost layer or
+    microbatch would halve the ratio."""
     port, ref = port_cells[arch], ref_cells[arch]
     assert ref["status"] == "ok", ref.get("error")
     for k in ("model_gflops_total", "floor_gbytes"):
@@ -109,11 +110,22 @@ def test_zero1_override_traces():
     assert res["collectives"]["coll_counts"].get("all-reduce", 0) > 0
 
 
-def test_seq_parallel_is_recorded_as_an_error():
+def test_seq_parallel_cell_is_ok_and_shows_the_sequence_collectives(
+        port_cells):
+    """qwen1.5-0.5b's train_4k at 2 layers under ``seq_parallel`` traces
+    ``ok``; against the same cell without it (``port_cells``), each block's
+    all-reduce exit becomes a reduce-scatter over the sequence and its
+    entry an all-gather, and the temporaries fall."""
     res = dryrun.run_cell("qwen1.5-0.5b", "train_4k", "test",
-                          overrides={"seq_parallel": True})
-    assert res["status"] == "error"
-    assert res["error"].startswith("NotImplementedError")
+                          overrides={"n_layers": 2, "seq_parallel": True})
+    assert res["status"] == "ok", (res.get("error"), res.get("trace"))
+    base = port_cells["qwen1.5-0.5b"]["collectives"]["coll_counts"]
+    got = res["collectives"]["coll_counts"]
+    assert got.get("all-reduce", 0) < base.get("all-reduce", 0)
+    assert got["reduce-scatter"] > base["reduce-scatter"]
+    assert got["all-gather"] > base["all-gather"]
+    assert res["memory"]["temp_size_in_bytes"] < port_cells[
+        "qwen1.5-0.5b"]["memory"]["temp_size_in_bytes"]
 
 
 def test_the_clis_record_and_skip_cached_cells(tmp_path, capsys):

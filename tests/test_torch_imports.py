@@ -62,7 +62,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
         "examples.quickstart", "dist", "dist.context", "dist.sharding",
         "dist.collectives", "dist.pipeline", "launch.mesh", "roofline",
         "roofline.analysis", "roofline.op_cost", "launch.dryrun",
-        "launch.perf")} <= \
+        "launch.perf", "models.tp")} <= \
         set(res["modules"])
 
 

@@ -68,15 +68,20 @@ def test_cache_specs_without_a_mesh_replicate(arch):
 
 # one run a family: dense, moe (MLA and the sharded MoE dispatch), the
 # hybrid, and the audio encoder-decoder (whose prefill leaves the cache
-# unfilled, so its decode starts at length 0)
+# unfilled, so its decode starts at length 0); and the dense one with 2
+# K/V heads, which the spec cuts on a 'model' axis of 4, decoding across
+# the edge of the first sequence shard (positions 0-7 of 32)
 RUNS = {
     "dense": {"arch": "qwen1.5-0.5b", "over": {}, "start": 16},
+    "dense-kv2": {"arch": "qwen1.5-0.5b", "over": {"kv_heads": 2},
+                  "start": 6, "prompt": 6},
     "moe": {"arch": "deepseek-v3-671b", "over": {}, "start": 16},
     "hybrid": {"arch": "zamba2-2.7b", "over": {}, "start": 16},
     "audio": {"arch": "whisper-large-v3", "over": {}, "start": 0},
 }
 for _r in RUNS.values():
-    _r.update(B=8, S=32, prompt=16, steps=4)
+    _r.update(B=8, S=32, steps=4)
+    _r.setdefault("prompt", 16)
 
 SERVE = """
 import dataclasses, json

@@ -164,7 +164,8 @@ def _case_train(params, rank):
     pre = params["name"] + "/"
     mesh = make_test_mesh(tuple(params.get("mesh", (2, 4))),
                           ("data", "model"))
-    dist = make_dist(mesh, zero1=params["zero1"])
+    dist = make_dist(mesh, zero1=params["zero1"],
+                     seq_parallel=params["seq_parallel"])
     cfg = dataclasses.replace(get_arch(params["arch"]).reduced(),
                               **params["over"])
     model = build_model(cfg, "cpu", dist)
