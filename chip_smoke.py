@@ -52,14 +52,16 @@ Phases, each ending in one line:
      checked at: the output unchanged bit for bit, the lse within 1e-4 x
      (1 + |lse|) of the plain version's, and where timed, timed with and
      without it. (b) the sequence-parallel decode's kernel work in one
-     process: qwen1.5-0.5b's decode over decode_32k's cache (B 8, 32,768
-     positions, bf16) cut into the 16 sequence shards of the (16, 16)
-     mesh's model axis, ``flash_decode`` with its lse on each shard at its
-     local lengths and the partials merged in fp32 by
-     ``models.attention.merge_partials``, against one whole-cache call
-     and the plain version (3e-2; lse 1e-4 x (1 + |lse|); the empty row
-     0), with the launch counters reset just before the shard calls and
-     read just after (16), each way timed;
+     process, at three caches in bf16 cut into the 16 sequence shards of
+     the (16, 16) mesh's model axis: qwen1.5-0.5b's and
+     whisper-large-v3's self-attention over decode_32k's cache (B 8,
+     32,768 positions) and zamba2-2.7b's shared block over long_500k's
+     (B 1, 524,288 positions, H 32, D 80: 5.4 GB of K and V);
+     ``flash_decode`` with its lse on each shard at its local lengths and
+     the partials merged in fp32 by ``models.attention.merge_partials``,
+     against one whole-cache call and the plain version (3e-2; lse 1e-4 x
+     (1 + |lse|); empty rows 0), with the launch counters reset just
+     before the shard calls and read just after (16), each way timed;
   4. serving: qwen1.5-0.5b at its published width and depth through the
      engine (``repro_torch.launch.serve.main``), with the kernels' launch
      counters reset just before and read just after; then one prefill and
@@ -194,14 +196,21 @@ Phases, each ending in one line:
      within 2e-2 of the output's scale, the same routing, each path's
      device time; then in fp32 at an expert d_ff of 4096, within 1e-5.
      (d) ``elastic_restore`` of phase 12's step-10 checkpoint onto the
-     mesh: every leaf bit for bit. The process group is destroyed at the
-     end;
+     mesh: every leaf bit for bit. (e) whisper-large-v3 whole (32 + 32
+     layers) in bf16, B 2 of 1,500 frames and 448 tokens: 5 steps each of
+     the single-device step and the FSDP step (its per-layer gathers over
+     both stacks) in alternating turns, losses and parameters bit for bit
+     (or 1e-6 relative), ``flash_attention`` launched 192 times a step.
+     The process group is destroyed at the end;
  14. the dry-run. (a) ``python -m repro_torch.launch.dryrun`` for the
      reference test's four family cells on the (2, 4) test mesh
      (qwen1.5-0.5b train_4k, rwkv6-3b decode_32k, zamba2-2.7b long_500k,
      whisper-large-v3 prefill_32k) and for qwen1.5-0.5b's train_4k,
-     prefill_32k and decode_32k and deepseek-v3-671b's prefill_32k on
-     the (16, 16) mesh, each as rank 0 of a fake world in a child process
+     prefill_32k and decode_32k, deepseek-v3-671b's prefill_32k and
+     zamba2-2.7b's and whisper-large-v3's decode_32k (their temporaries
+     and wire a step each below their counts when the sequence-sharded
+     cache was relaid every step) on the (16, 16) mesh, each as rank 0 of a
+     fake world in a child process
      of its own, and ``python -m repro_torch.launch.perf --cell
      chameleon_decode`` and ``--cell qwen_train --variant seqpar``, all
      at once: a child's non-zero exit, or a result not ``ok``, fails the
@@ -305,6 +314,10 @@ DIST = dict(steps=5, moe_arch="grok-1-314b", moe_tokens=512, moe_cf=4.0,
             # the sharded steps beside one device's: make_dist's knobs
             sharded={"fsdp": {}, "zero1": {"zero1": True},
                      "seqpar": {"seq_parallel": True}})
+# phase 13 (e): whisper-large-v3 whole (32 + 32 layers) in bf16, one
+# device's step and the FSDP step at world 1, on B 2 of 1,500 frames and
+# 448 tokens (the published decoder length)
+DIST_WHISPER = dict(arch="whisper-large-v3", batch=2, tokens=448, steps=5)
 DIST_DIR = ROOT / "build" / "chip_smoke_dist"
 # phase 14: the dry-run. (a) its cells, each traced by
 # ``python -m repro_torch.launch.dryrun`` in a child process of its own (all
@@ -324,7 +337,15 @@ DRYRUN_CELLS = [("test", "qwen1.5-0.5b", "train_4k"),
                 ("single", "qwen1.5-0.5b", "train_4k"),
                 ("single", "qwen1.5-0.5b", "prefill_32k"),
                 ("single", "qwen1.5-0.5b", "decode_32k"),
-                ("single", "deepseek-v3-671b", "prefill_32k")]
+                ("single", "deepseek-v3-671b", "prefill_32k"),
+                ("single", "zamba2-2.7b", "decode_32k"),
+                ("single", "whisper-large-v3", "decode_32k")]
+# the decode cells whose sequence-sharded caches were relaid on every step
+# before the sequence-parallel decode: their temporaries and wire a step
+# then, in bytes a rank (the dry-run's counts on (16, 16), PERF.md section
+# 6), which each must now stay below
+DRYRUN_BELOW = {"zamba2-2.7b|decode_32k|single": (41.1e9, 27.2e9),
+                "whisper-large-v3|decode_32k|single": (67.5e9, 43.3e9)}
 # launch.perf's jobs: (cell, variant, or None for all of the cell's)
 DRYRUN_PERF = [("chameleon_decode", None), ("qwen_train", "seqpar")]
 DRYRUN_DIR = ROOT / "build" / "chip_smoke_dryrun"
@@ -341,13 +362,22 @@ TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
 # flash_decode's log-sum-exp against its plain version's, fp32 both (the
 # kernel sums in base 2 from prescaled scores): x (1 + |lse|)
 LSE_TOL = 1e-4
-# phase 3 (b): qwen1.5-0.5b's decode over decode_32k's cache (32,768
-# positions, the 8 rows a data rank holds of its 128) cut into the 16
-# sequence shards of the (16, 16) mesh's model axis, in one process; row
+# phase 3 (b): the sequence-parallel decode's caches cut into the 16
+# sequence shards of the (16, 16) mesh's model axis, in one process:
+# qwen1.5-0.5b's and whisper-large-v3's self-attention over decode_32k's
+# cache (32,768 positions, the 8 rows a data rank holds of its 128; row
 # lengths: empty, one position, a shard's edge and past it, midway, and
-# the whole cache
-SEQ_DECODE = dict(batch=8, seq=32768, shards=16,
-                  lengths=(0, 1, 2048, 2049, 10000, 20480, 32767, 32768))
+# the whole cache), and zamba2-2.7b's shared block over long_500k's (one
+# row of 524,288 positions, 5.4 GB of bf16 K and V; its last shard one
+# position short)
+_LENGTHS_32K = (0, 1, 2048, 2049, 10000, 20480, 32767, 32768)
+SEQ_DECODE = [
+    dict(arch="qwen1.5-0.5b", cell="decode_32k", batch=8, seq=32768,
+         shards=16, lengths=_LENGTHS_32K),
+    dict(arch="zamba2-2.7b", cell="long_500k", batch=1, seq=524288,
+         shards=16, lengths=(524287,)),
+    dict(arch="whisper-large-v3", cell="decode_32k", batch=8, seq=32768,
+         shards=16, lengths=_LENGTHS_32K)]
 KERNELS = {
     "flash_attention": {
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -621,30 +651,44 @@ def check_kernel(name, case, label, dtype_name, timed):
 
 def seq_decode_check():
     """Phase 3 (b): the sequence-parallel decode's kernel work in one
-    process (NCCL refuses two ranks on one card): ``SEQ_DECODE``'s cache
-    at qwen1.5-0.5b's full width in bf16, cut into 16 sequence shards as
-    the (16, 16) mesh's model axis rests it; ``flash_decode`` with its
-    log-sum-exp on each shard at its local lengths (clamp(L - r S_r, 0,
-    S_r)), the partials merged in fp32 by ``models.attention.
-    merge_partials``, against one whole-cache call (bf16 tolerance) and
-    the plain version; each timed device-only. Returns the shard calls'
-    launches, counted from 0 just before them."""
+    process (NCCL refuses two ranks on one card), at each of
+    ``SEQ_DECODE``'s caches at its arch's full width in bf16, cut into 16
+    sequence shards as the (16, 16) mesh's model axis rests it:
+    ``flash_decode`` with its log-sum-exp on each shard at its local
+    lengths (clamp(L - r S_r, 0, S_r)), the partials merged in fp32 by
+    ``models.attention.merge_partials``, against one whole-cache call
+    and the plain version (each output within the bf16 tolerance of its
+    row's largest |value|, the lse within ``LSE_TOL``); an empty row (and
+    every row at length 0) merged to 0; the limit shown to reject a merge
+    with shard 1 dropped and an output of zeros; each timed device-only.
+    Returns each cache's shard launches, counted from 0 just before its
+    shard calls."""
+    out = {}
+    for case in SEQ_DECODE:
+        out[f"{case['arch']} {case['cell']}"] = seq_decode_case(case)
+        free_cuda()
+    return out
+
+
+def seq_decode_case(case: dict) -> dict:
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops, ref
     from repro_torch.models.attention import merge_partials
-    cfg = get_arch(ARCH)
-    B, S, R = SEQ_DECODE["batch"], SEQ_DECODE["seq"], SEQ_DECODE["shards"]
+    cfg = get_arch(case["arch"])
+    B, S, R = case["batch"], case["seq"], case["shards"]
     H, KVH, D = cfg.n_heads, cfg.kv_heads, cfg.resolved_head_dim
     gen = torch.Generator(device="cuda").manual_seed(1)
     (q, kc, vc, lens), _, nbytes, _ = decode_case(
-        B, H, KVH, S, D, torch.bfloat16, list(SEQ_DECODE["lengths"]), gen)
+        B, H, KVH, S, D, torch.bfloat16, list(case["lengths"]), gen)
     Sr = S // R
-    shards = [(kc[:, :, r * Sr:(r + 1) * Sr], vc[:, :, r * Sr:(r + 1) * Sr],
-               (lens - r * Sr).clamp(0, Sr)) for r in range(R)]
+    label = (f"{case['arch']} {case['cell']} B{B} H{H} KVH{KVH} S{S} D{D} "
+             f"bf16, {R} shards of {Sr}")
 
-    def sharded():
-        parts = [ops.flash_decode_lse(q, k, v, n) for k, v, n in shards]
+    def sharded(lengths=lens, drop=None):
+        parts = [ops.flash_decode_lse(
+            q, kc[:, :, r * Sr:(r + 1) * Sr], vc[:, :, r * Sr:(r + 1) * Sr],
+            (lengths - r * Sr).clamp(0, Sr)) for r in range(R) if r != drop]
         return merge_partials(torch.stack([o for o, _ in parts]),
                               torch.stack([lse for _, lse in parts]))
 
@@ -654,36 +698,59 @@ def seq_decode_check():
     o, lse = sharded()
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    require(launches["flash_decode"] == R, f"seq decode: {launches}")
+    require(launches["flash_decode"] == R, f"seq decode {label}: {launches}")
     want_o, want_lse = whole()
     plain_o, _ = ref.decode_attention_lse_ref(q, kc, vc, lens)
     torch.cuda.synchronize()
     tol = TOL["flash_decode"]["bfloat16"]
     got = o.to(q.dtype).float()         # as the decode hands it on
     fin = torch.isfinite(want_lse)
+
+    def excess(x, w):
+        """The largest |x - w| over tol x the largest |w| of its row (a
+        (b, head) pair): above 1 fails. Outputs over a long cache are
+        small (about sqrt(e / length) for random q, k and v), so a limit
+        of tol in absolute terms would pass zeros."""
+        lim = (tol * w.abs().amax(-1, keepdim=True)).clamp_min(1e-30)
+        return ((x - w).abs() / lim).max().item()
     errs = {}
     for what, w in (("whole-cache kernel", want_o), ("plain", plain_o)):
         w = w.float()
-        errs[what] = (got - w).abs().max().item()
-        require(bool(((got - w).abs() <= tol + tol * w.abs()).all()),
-                f"seq decode: the merged shards against the {what} call, "
-                f"max abs {errs[what]:.3g} (tol {tol})")
+        errs[what] = ((got - w).abs().max().item(), excess(got, w))
+        require(errs[what][1] <= 1,
+                f"seq decode {label}: the merged shards against the {what} "
+                f"call, max abs {errs[what][0]:.3g}, {errs[what][1]:.3g} of "
+                f"the limit (tol {tol} x the row's max |value|)")
+    # the limit catches a fault in a shard's output or in the weighting
+    w = want_o.float()
+    faults = {"shard 1 dropped": excess(
+        sharded(drop=1)[0].to(q.dtype).float(), w),
+        "zeros": excess(torch.zeros_like(w), w)}
+    require(all(v > 1 for v in faults.values()),
+            f"seq decode {label}: the limit passes a faulty merge: {faults}")
     lse_err = (lse - want_lse)[fin].abs().max().item()
     require(torch.equal(torch.isfinite(lse), fin) and bool(
         ((lse - want_lse)[fin].abs() <= LSE_TOL * (1 + want_lse[fin].abs()))
-        .all()), f"seq decode: merged lse against the whole call's, max "
-        f"abs {lse_err:.3g}")
-    require(not bool(torch.isnan(o).any()) and bool((o[0] == 0).all()),
-            "seq decode: the empty row is not 0")
+        .all()), f"seq decode {label}: merged lse against the whole call's, "
+        f"max abs {lse_err:.3g}")
+    empty, _ = sharded(torch.zeros_like(lens))
+    require(not bool(torch.isnan(o).any()) and bool((empty == 0).all())
+            and all(bool((o[b] == 0).all())
+                    for b, n in enumerate(case["lengths"]) if n == 0),
+            f"seq decode {label}: an empty row is not 0")
     t_shards = device_ms([sharded], iters=20)
     t_whole = device_ms([whole], iters=20)
     m = machine()
-    say(f"  seq-parallel decode, {ARCH} B{B} H{H} KVH{KVH} S{S} D{D} bf16, "
-        f"{R} shards of {Sr}, lengths {list(SEQ_DECODE['lengths'])}: merged "
-        f"against the whole-cache kernel max abs {errs['whole-cache kernel']:.3g}"
-        f", against the plain version {errs['plain']:.3g} (tol {tol}); lse "
-        f"max abs {lse_err:.3g} (tol {LSE_TOL} x (1 + |lse|)); the empty row "
-        f"0; launches {launches}; device ms: {R} shard calls and the merge "
+    kern_err, plain_err = errs["whole-cache kernel"], errs["plain"]
+    rejected = ", ".join(f"{k} {v:.3g}" for k, v in faults.items())
+    say(f"  seq-parallel decode, {label}, lengths {list(case['lengths'])}: "
+        f"merged against the whole-cache kernel max abs {kern_err[0]:.3g} "
+        f"({kern_err[1]:.3g} of the limit), against the plain version "
+        f"{plain_err[0]:.3g} ({plain_err[1]:.3g}) (limit {tol} x the row's "
+        f"max |value|); faults rejected at {rejected} of the limit; lse max "
+        f"abs {lse_err:.3g} (tol "
+        f"{LSE_TOL} x (1 + |lse|)); empty rows 0; launches {launches}; "
+        f"device ms ({card_line()}): {R} shard calls and the merge "
         f"{t_shards['ms']:.4f}, one whole-cache call {t_whole['ms']:.4f}, "
         f"bound {nbytes / m.hbm_bytes_per_s * 1e3:.4f} (bytes); host hidden "
         f"{t_shards['hidden']}/{t_whole['hidden']}")
@@ -2399,11 +2466,104 @@ def dist_phase():
         walls["c"] = time.perf_counter() - t0 - sum(walls.values())
         dist_restore_phase(mesh)
         walls["d"] = time.perf_counter() - t0 - sum(walls.values())
+        free_cuda()
+        whisper_launches = dist_whisper_phase(mesh)
+        walls["e"] = time.perf_counter() - t0 - sum(walls.values())
         say("  phase 13 walls: " + ", ".join(f"({k}) {v:.1f}s"
                                              for k, v in walls.items()))
     finally:
         tdist.destroy_process_group()
         shutil.rmtree(DIST_DIR, ignore_errors=True)
+    return {"dist": launches,
+            f"dist {DIST_WHISPER['arch']}": whisper_launches}
+
+
+def dist_whisper_phase(mesh):
+    """Phase 13 (e): whisper-large-v3 whole in bf16 (``DIST_WHISPER``), one
+    device's step and the FSDP step on the mesh from one state, 5 steps
+    each in alternating turns: the losses and, after the steps, every
+    parameter bit-equal (or within ``DIST["loss_rel"]`` relative). At a
+    model axis of 1 the tensor-parallel plan is None, so this checks the
+    wiring of whisper's sharded step (its per-layer gathers over the
+    encoder's and decoder's stacks, the frames' rows) at full width, not
+    its split. Returns the FSDP steps' launches."""
+    import torch
+    from repro_torch.bridge import flatten
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist.context import make_dist
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    from repro_torch.train.loop import (init_train_state, make_train_step,
+                                        shard_train_state)
+    from repro_torch.train.optimizer import OptConfig
+    w = DIST_WHISPER
+    cfg = get_arch(w["arch"])
+    B, T, steps = w["batch"], w["tokens"], w["steps"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batches = [{"tokens": torch.randint(0, cfg.vocab, (B, T), generator=gen,
+                                        device="cuda"),
+                "targets": torch.randint(0, cfg.vocab, (B, T), generator=gen,
+                                         device="cuda"),
+                "frames": (torch.randn(B, cfg.enc_dec.n_frames, cfg.d_model,
+                                       generator=gen, device="cuda") * 0.5
+                           ).to(torch.bfloat16)} for _ in range(steps)]
+    opt = OptConfig(lr=TRAIN["lr"], warmup_steps=1, total_steps=steps)
+    single = build_model(cfg, "cuda")
+    state0 = init_train_state(single, gen, opt)
+    model = build_model(cfg, "cuda", make_dist(mesh))
+    shape = ShapeConfig("train", T, B, "train")
+    runs = {"single": (make_train_step(single, opt),
+                       clone_state(state0, grad=True)),
+            "fsdp": (make_train_step(model, opt,
+                                     batch_specs=model.batch_specs(shape)),
+                     shard_train_state(state0, model, opt))}
+    del state0
+    free_cuda()
+    losses = {n: [] for n in runs}
+    ms = {n: [] for n in runs}
+    launches = dict.fromkeys(ops.launch_counts(), 0)
+    for i in range(steps):
+        for name in (list(runs) if i % 2 == 0 else list(runs)[::-1]):
+            step, state = runs[name]
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, m = step(state, batches[i])
+            losses[name].append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            if name == "fsdp":
+                for k, n in ops.launch_counts().items():
+                    launches[k] += n
+            runs[name] = (step, state)
+    got, want = losses["fsdp"], losses["single"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    finite = all(math.isfinite(x) for x in got + want)
+    a, b = (flatten(runs[n][1]["params"]) for n in ("fsdp", "single"))
+    worst = max(float((a[k].detach() - v.detach()).abs().max())
+                / max(float(v.detach().abs().max()), 1e-30)
+                for k, v in b.items())
+    layers = cfg.enc_dec.n_encoder_layers + 2 * cfg.n_layers
+    say(f"  {w['arch']} whole ({cfg.enc_dec.n_encoder_layers} + "
+        f"{cfg.n_layers} layers) in bf16, B {B} x {cfg.enc_dec.n_frames} "
+        f"frames x {T} tokens, {steps} steps each in alternating turns "
+        f"({card_line()}): single-device losses "
+        f"{[round(x, 6) for x in want]}; FSDP {[round(x, 6) for x in got]},"
+        f" bit-equal: {got == want} (largest relative difference "
+        f"{rel:.3g}); parameters after {steps} steps: worst leaf "
+        f"{worst:.3g} of its scale; step ms p50 single "
+        f"{statistics.median(ms['single']):.1f}, FSDP "
+        f"{statistics.median(ms['fsdp']):.1f}; FSDP launches {launches}")
+    require(finite and rel <= DIST["loss_rel"]
+            and worst <= DIST["loss_rel"],
+            f"dist: whisper's FSDP step parts from one device's")
+    # attention a layer (encoder: self; decoder: self and cross), forward
+    # and remat's recompute
+    require(launches["flash_attention"] == 2 * layers * steps,
+            f"dist: whisper's FSDP steps launched flash_attention "
+            f"{launches['flash_attention']} times")
+    del runs, batches
     return launches
 
 
@@ -2794,6 +2954,15 @@ def dryrun_children():
             f"{c['total_wire'] / 1e9:.3f} GB {c['wire_by_link']}; "
             f"replicas {res['replicas']}, traced on {res['traced_on']} in "
             f"{res['trace_s']} s")
+    for key, (temp, wire) in DRYRUN_BELOW.items():
+        res = results[key]
+        t = res["memory"]["temp_size_in_bytes"]
+        c = res["collectives"]["total_wire"]
+        say(f"  {key}: temporaries {t / 1e9:.3f} GB and wire "
+            f"{c / 1e9:.3f} GB a step a rank, against {temp / 1e9:.1f} and "
+            f"{wire / 1e9:.1f} GB with the cache relaid")
+        require(t < temp and c < wire, f"dry-run {key}: not below the "
+                f"relaid cache's {temp / 1e9:.1f} / {wire / 1e9:.1f} GB")
     return results, wall
 
 
@@ -3090,9 +3259,11 @@ def main() -> int:
                                  "train": train_launches[name],
                                  **{f"train {arch}": n[name] for arch, n
                                     in family_launches.items()},
-                                 "dist": dist_launches[name],
-                                 "seq-parallel decode (16 shards, one "
-                                 "process)": seq_launches[name],
+                                 **{k: n[name] for k, n
+                                    in dist_launches.items()},
+                                 **{f"seq-parallel decode {c} (16 shards, "
+                                    f"one process)": n[name] for c, n
+                                    in seq_launches.items()},
                                  "estimate": estimate_launches[name]},
             "max_abs_err": main_case["max_abs_err"],
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],

@@ -70,12 +70,11 @@ from repro_torch.dist.sharding import (Placement, axis_size, map_with_specs,
 from repro_torch.launch.mesh import (fake_world, make_production_mesh,
                                      make_test_mesh)
 from repro_torch.models.api import build_model
-from repro_torch.models.tp import plan as tp_plan
 from repro_torch.roofline import analysis as roofline
 from repro_torch.roofline.op_cost import CostCounter, CostTotals
 from repro_torch.train.loop import (cache_shardings, make_serve_steps,
                                     make_train_step, param_shardings,
-                                    train_state_shardings)
+                                    seq_cache_leaves, train_state_shardings)
 from repro_torch.train.optimizer import OptConfig, init_opt_state
 
 # tokens-per-device memory pressure -> grad accumulation (the reference's;
@@ -213,6 +212,7 @@ def trace_cell(cfg, shape, mesh_kind=None, dist_kw=None, grad_accum=1,
             inputs = {k: _empty(v.shape, v.dtype, dev)
                       for k, v in model.input_specs(shape).items()}
             t0 = time.time()
+            seq_leaves = set()
             if shape.kind == "train":
                 state = _shards(
                     {"params": abstract,
@@ -232,6 +232,7 @@ def trace_cell(cfg, shape, mesh_kind=None, dist_kw=None, grad_accum=1,
                                 cache_shardings(model, cache_like), dev)
                 params = _shards(abstract, param_shardings(model), dev)
                 prefill, decode = make_serve_steps(model, cache_like)
+                seq_leaves = seq_cache_leaves(model, cache_like)
                 args = _nbytes(params) + _nbytes(cache)
                 if shape.kind == "prefill":
                     tr = _run(prefill, params, inputs, cache)
@@ -246,12 +247,20 @@ def trace_cell(cfg, shape, mesh_kind=None, dist_kw=None, grad_accum=1,
             args += sum(math.prod(_local_shape(t, split[k]))
                         * t.element_size() for k, t in inputs.items())
             # the ranks that compute the same rows: those that split the
-            # rows, and under tensor parallelism the model axis, compute
-            # distinct work; gather on use computes each share of the rows
-            # on every rank of the other axes
-            split_ranks = math.prod(axis_size(mesh, a)
-                                    for _, a in split["tokens"].dims)
-            if model.per_layer_gathers and tp_plan(cfg, dist) is not None:
+            # rows compute distinct work, and so do the ranks of the model
+            # axis where a plan splits leaves over it (the transformer
+            # family's and whisper's tensor parallelism) or the step
+            # attends over a cache sharded over it on its sequence (the
+            # hybrid's decode: the attention over a long cache is most of
+            # its work, its Mamba2 layers the same on every rank); gather
+            # on use computes each share of the rows on every rank of the
+            # other axes
+            row_axes = {a for _, axes in split["tokens"].dims for a in axes}
+            split_ranks = axis_size(mesh, tuple(row_axes))
+            plan = model.plan()
+            if dist.active and dist.model_axis not in row_axes and (
+                    model.per_layer_gathers and plan is not None
+                    and plan.splits or seq_leaves):
                 split_ranks *= dist.model_size
             replicas = world // split_ranks
             out = sum(t.numel() * t.element_size()

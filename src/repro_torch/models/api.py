@@ -30,11 +30,15 @@ rank's shards to the spec it takes each at: the experts of a sharded MoE
 dispatch, and for the transformer family on a ``model`` axis of more
 than one rank the leaves it computes tensor-parallel (``models.tp``:
 q/k/v and ``wo`` by heads, the MLP by columns, the embeddings by
-vocabulary rows); the sharded steps gather every other leaf on use. The
-transformer family's ``loss``, ``prefill`` and ``decode_step`` also take
-``on_use`` (``tp.OnUse``: the per-layer gather, and whether the cache
-rests sequence-sharded), which the sharded steps pass
-(``per_layer_gathers``).
+vocabulary rows), and for the encoder-decoder its dense layers split on
+their output dim (``encdec.encdec_local_leaves``); the sharded steps
+gather every other leaf on use. The transformer family's and the
+encoder-decoder's ``loss`` also takes ``on_use`` (``tp.OnUse``: the
+per-layer gather), which the sharded step passes (``per_layer_gathers``);
+every family's ``prefill`` and ``decode_step`` take it, with whether the
+attention caches rest sharded over ``model`` on their sequence (RWKV6
+has none). ``plan()`` is this rank's plan of ``models.tp`` that the
+forward computes on (None off a ``model`` axis and for RWKV6).
 """
 from __future__ import annotations
 
@@ -45,8 +49,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.context import DistContext, no_dist
-from repro_torch.dist.sharding import P, map_with_specs
+from repro_torch.dist.sharding import P, map_with_specs, sanitize_specs
 from repro_torch.models import encdec, hybrid, rwkv6, transformer
+from repro_torch.models import tp as tpm
 from repro_torch.models.tp import OnUse
 from repro_torch.models.layers import dt, token_ce
 
@@ -66,7 +71,8 @@ class Model:
     dist: DistContext = no_dist()
     pure_dp: bool = False            # no TP dim: batch shards over model too
     local_leaves: dict = field(default_factory=dict)  # leaf -> spec on use
-    per_layer_gathers: bool = False  # loss/prefill/decode_step take on_use
+    per_layer_gathers: bool = False  # a layer at a time; loss takes on_use
+    plan: Callable = lambda: None    # () -> this rank's tp plan
 
     def init(self, gen: torch.Generator) -> dict:
         """Random parameters on the model's device, from ``gen``."""
@@ -173,7 +179,7 @@ def _build_lm(cfg: ArchConfig, device: torch.device,
                  cache_specs=lambda: transformer.lm_cache_specs(cfg, dist),
                  dist=dist,
                  local_leaves=transformer.lm_local_leaves(cfg, dist),
-                 per_layer_gathers=True)
+                 per_layer_gathers=True, plan=lambda: tpm.plan(cfg, dist))
 
 
 def _build_hybrid(cfg: ArchConfig, device: torch.device,
@@ -186,11 +192,13 @@ def _build_hybrid(cfg: ArchConfig, device: torch.device,
     def init_cache(params, batch, B, max_seq):
         return hybrid.hybrid_states(cfg, B, max_seq, device)
 
-    def prefill(params, batch, cache):
-        return hybrid.hybrid_prefill(params, batch["tokens"], cfg, cache)
+    def prefill(params, batch, cache, on_use=OnUse()):
+        return hybrid.hybrid_prefill(params, batch["tokens"], cfg, cache,
+                                     dist, on_use)
 
-    def decode_step(params, cache, tokens, lengths):
-        return hybrid.hybrid_decode_step(params, cache, tokens, lengths, cfg)
+    def decode_step(params, cache, tokens, lengths, on_use=OnUse()):
+        return hybrid.hybrid_decode_step(params, cache, tokens, lengths, cfg,
+                                         dist, on_use)
 
     def cache_specs():
         dp, m = _cache_axes(dist)
@@ -205,7 +213,8 @@ def _build_hybrid(cfg: ArchConfig, device: torch.device,
                  decode_step=decode_step,
                  param_specs=lambda: _fs_specs(
                      hybrid.hybrid_init(None, cfg, "meta"), _fsdp_axis(dist)),
-                 cache_specs=cache_specs, dist=dist, pure_dp=True)
+                 cache_specs=cache_specs, dist=dist, pure_dp=True,
+                 plan=lambda: tpm.plan(cfg, dist))
 
 
 def _build_rwkv(cfg: ArchConfig, device: torch.device,
@@ -220,12 +229,12 @@ def _build_rwkv(cfg: ArchConfig, device: torch.device,
     def init_cache(params, batch, B, max_seq):
         return rwkv6.rwkv6_lm_states(cfg, B, device)
 
-    def prefill(params, batch, cache):
+    def prefill(params, batch, cache, on_use=OnUse()):
         logits, st = rwkv6.rwkv6_lm_apply(params, batch["tokens"], cfg,
                                           cache)
         return logits[:, -1, :], st
 
-    def decode_step(params, cache, tokens, lengths):
+    def decode_step(params, cache, tokens, lengths, on_use=OnUse()):
         logits, st = rwkv6.rwkv6_lm_apply(params, tokens, cfg, cache)
         return logits[:, 0, :], st
 
@@ -251,22 +260,41 @@ def _build_encdec(cfg: ArchConfig, device: torch.device,
     encoder over ``batch["frames"]``, and ``prefill`` runs it again and
     the teacher-forced decoder, returning the last position's logits and
     the cache unfilled: the self-KV fills step by step through
-    ``decode_step``."""
-    def loss(params, batch):
+    ``decode_step``. ``init_cache`` takes the whole parameters, or with
+    ``on_use`` the parameters as they rest on a mesh. The plan's ``cols``
+    are the dense layers that the sanitized ``param_specs`` split over
+    ``model``, read once here."""
+    def param_specs():
+        return encdec.encdec_param_specs(cfg, _fsdp_axis(dist),
+                                         dist.model_axis)
+    cols = encdec.split_cols(sanitize_specs(
+        encdec.encdec_init(None, cfg, "meta"), param_specs(), dist.mesh),
+        dist.model_axis) if dist.active and dist.model_size > 1 \
+        else frozenset()
+
+    def plan():
+        return tpm.plan(cfg, dist, cols)
+
+    def loss(params, batch, on_use=OnUse()):
         return encdec.encdec_loss(params, batch["frames"], batch["tokens"],
-                                  batch["targets"], cfg, remat="full")
+                                  batch["targets"], cfg, "full", plan(),
+                                  on_use)
 
-    def init_cache(params, batch, B, max_seq):
+    def init_cache(params, batch, B, max_seq, on_use=None):
         return encdec.encdec_init_cache(params, batch["frames"], cfg, B,
-                                        max_seq)
+                                        max_seq, plan(), on_use)
 
-    def prefill(params, batch, cache):
-        enc_out = encdec.encode(params, batch["frames"], cfg)
-        logits = encdec.decode_forward(params, batch["tokens"], enc_out, cfg)
+    def prefill(params, batch, cache, on_use=OnUse()):
+        tp = plan()
+        enc_out = encdec.encode(params, batch["frames"], cfg, "none", tp,
+                                on_use)
+        logits = encdec.decode_forward(params, batch["tokens"], enc_out, cfg,
+                                       "none", tp, on_use)
         return logits[:, -1, :], cache
 
-    def decode_step(params, cache, tokens, lengths):
-        return encdec.encdec_decode_step(params, cache, tokens, lengths, cfg)
+    def decode_step(params, cache, tokens, lengths, on_use=OnUse()):
+        return encdec.encdec_decode_step(params, cache, tokens, lengths, cfg,
+                                         plan(), on_use)
 
     def cache_specs():
         dp, m = _cache_axes(dist)
@@ -275,24 +303,14 @@ def _build_encdec(cfg: ArchConfig, device: torch.device,
                 "cross": {"xk": P(None, dp, None, None, None),
                           "xv": P(None, dp, None, None, None)}}
 
-    def param_specs():
-        # dense kernels [.., d_in, d_out]: TP on the last dim, FSDP on the
-        # second-last; small leaves and vectors replicated
-        fs, m = _fsdp_axis(dist), dist.model_axis
-
-        def one(a):
-            if a.ndim <= 1 or a.numel() < 1 << 16:
-                return P()
-            spec = [None] * a.ndim
-            spec[-1], spec[-2] = m, fs
-            return P(*spec)
-        return map_with_specs(one, encdec.encdec_init(None, cfg, "meta"))
-
     return Model(cfg=cfg, device=device, family=cfg.family,
                  init_on=lambda gen, dev: encdec.encdec_init(gen, cfg, dev),
                  loss=loss, init_cache=init_cache, prefill=prefill,
                  decode_step=decode_step, param_specs=param_specs,
-                 cache_specs=cache_specs, dist=dist)
+                 cache_specs=cache_specs, dist=dist,
+                 local_leaves=encdec.encdec_local_leaves(cols,
+                                                         dist.model_axis),
+                 per_layer_gathers=True, plan=plan)
 
 
 FAMILIES = {"dense": _build_lm, "vlm": _build_lm, "moe": _build_lm,

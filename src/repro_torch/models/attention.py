@@ -93,12 +93,17 @@ def _qkv(p, x, cfg: ArchConfig, positions, tp=None):
     q = dense(p["wq"], x, cdt).reshape(B, S, -1, hd)
     k = dense(wk, x, cdt).reshape(B, S, -1, hd)
     v = dense(wv, x, cdt).reshape(B, S, -1, hd)
+    return (*norm_rope(p, q, k, cfg, positions), v)
+
+
+def norm_rope(p, q, k, cfg: ArchConfig, positions):
+    """q and k [B,S,n,hd] QK-normed where the block has the scales, then
+    RoPE'd at ``positions``."""
     if "q_scale" in p:
         q = rmsnorm(q, p["q_scale"])
         k = rmsnorm(k, p["k_scale"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
 
 
 def attention(q, k, v, causal: bool = True):
@@ -113,13 +118,11 @@ def attention(q, k, v, causal: bool = True):
     return o.transpose(1, 2).reshape(B, S, -1)
 
 
-def gqa_forward(p, x, cfg: ArchConfig, positions, causal: bool = True,
-                tp=None):
-    """Self-attention over the sequence, positions ``0..S-1``: causal, or
-    over every position (the encoder's); this rank's partial sums under
-    ``tp.heads``."""
+def gqa_forward(p, x, cfg: ArchConfig, positions, tp=None):
+    """Causal self-attention over the sequence, positions ``0..S-1``; this
+    rank's partial sums under ``tp.heads``."""
     q, k, v = _qkv(p, x, cfg, positions, tp)
-    return dense(p["wo"], attention(q, k, v, causal), dt(cfg.compute_dtype))
+    return dense(p["wo"], attention(q, k, v), dt(cfg.compute_dtype))
 
 
 def gqa_init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype,
@@ -143,7 +146,11 @@ def _write_prefill(cache, new: dict, S: int, tp, cache_seq: bool) -> None:
     """Writes each of ``new`` (name -> [B,S,...], this rank's heads under
     ``tp.heads``: [B,S,n_kv,hd]) into positions ``0..S-1`` of the cache,
     in place: whole, or where ``cache_seq`` this rank's block of them, the
-    heads sent to the ranks that hold their positions."""
+    heads sent to the ranks that hold their positions. Rows of ``new``
+    fewer than the cache's are this rank's share of the cache's rows,
+    split over the ``model`` axis (rank order) as the hybrid's prefill
+    splits them; each rank's rows go to the ranks that hold their
+    positions too."""
     if tp is None:
         for n, t in new.items():
             cache[n][:, :S] = t
@@ -157,11 +164,16 @@ def _write_prefill(cache, new: dict, S: int, tp, cache_seq: bool) -> None:
             continue
         Sr = c.shape[1]
         valid = max(0, min(S - tp.rank * Sr, Sr))
-        if _heads(tp):       # heads to sequence: block j to the rank j
+        if _heads(tp) or t.shape[0] != c.shape[0]:
+            # block j of the positions to the rank j, which receives every
+            # rank's heads of its block (heads to sequence) or, where the
+            # rows are split over the axis too (the hybrid's prefill),
+            # every rank's rows of it (rows to sequence)
             t = F.pad(t, (0, 0) * (t.dim() - 2) + (0, tp.size * Sr - S))
-            t = _kv_heads(all_to_all(
-                t.unflatten(1, (tp.size, Sr)).movedim(1, 0), tp.group), tp,
-                c.shape[2])
+            t = all_to_all(t.unflatten(1, (tp.size, Sr)).movedim(1, 0),
+                           tp.group)
+            t = _kv_heads(t, tp, c.shape[2]) if _heads(tp) \
+                else t.flatten(0, 1)
         else:
             t = t[:, tp.rank * Sr:]
         if valid:
@@ -221,6 +233,23 @@ def _merge_over(o, lse, tp):
     return merge_partials(parts[..., :-1], parts[..., -1])[0]
 
 
+def decode_attend(q, k, v, cache, lengths, tp=None,
+                  cache_seq: bool = False):
+    """One step's attention over the cache ``{"k", "v"}`` [B,Smax,KVH,hd]:
+    every head's q [B,H,hd] and new k/v [B,KVH,hd] -> [B,H,hd]. Writes
+    the new K/V at ``lengths`` (in place), then attends over ``lengths +
+    1`` positions through ``flash_decode`` on a ``[B,KVH,Smax,hd]``
+    permute view; where ``cache_seq`` the cache is this rank's block of
+    the sequence, attended through ``flash_decode_lse`` and merged over
+    the axis."""
+    local = _write_step(cache, {"k": k, "v": v}, lengths, tp, cache_seq)
+    kc, vc = (cache[n].permute(0, 2, 1, 3) for n in ("k", "v"))
+    if cache_seq:
+        return _merge_over(*ops.flash_decode_lse(q, kc, vc, local),
+                           tp).to(q.dtype)
+    return ops.flash_decode(q, kc, vc, local)
+
+
 def gqa_decode(p, x, cfg: ArchConfig, cache, lengths, tp=None,
                cache_seq: bool = False):
     """x: [B,1,d]; lengths[b] = number of tokens BEFORE this one.
@@ -240,13 +269,7 @@ def gqa_decode(p, x, cfg: ArchConfig, cache, lengths, tp=None,
         q = step[:, :, :n_q].movedim(0, 1).reshape(B, -1, q.shape[-1])
         k, v = (_kv_heads(t, tp, cfg.kv_heads) for t in (
             step[:, :, n_q:n_q + n_kv], step[:, :, n_q + n_kv:]))
-    local = _write_step(cache, {"k": k, "v": v}, lengths, tp, cache_seq)
-    kc, vc = (cache[n].permute(0, 2, 1, 3) for n in ("k", "v"))
-    if cache_seq:
-        o = _merge_over(*ops.flash_decode_lse(q, kc, vc, local), tp)
-        o = o.to(q.dtype)
-    else:
-        o = ops.flash_decode(q, kc, vc, local)
+    o = decode_attend(q, k, v, cache, lengths, tp, cache_seq)
     if _heads(tp):
         o = o[:, tp.q_lo:tp.q_lo + tp.n_q]
     return dense(p["wo"], o.reshape(B, 1, -1), dt(cfg.compute_dtype)), cache

@@ -17,13 +17,26 @@ leading axis of applications; prefill and decode write both in place and
 return the same dict. The shared block's attention goes through
 ``attention.gqa_forward`` / ``gqa_prefill`` / ``gqa_decode``, so through the
 ``flash_attention`` and ``flash_decode`` kernels on the card.
+
+On a mesh the parameters rest pure FSDP, gathered whole on use, and the
+shared block's caches rest with their sequence sharded over ``model``
+(the reference's ``cache_specs``). Where the sharded steps say so
+(``tp.OnUse.cache_seq``), prefill sends each rank's rows of the new K/V
+to the ranks that hold their positions (its rows are split over
+``model`` too, the family being pure DP) and the decode attends over
+this rank's block of the sequence, merged over the axis
+(``attention.gqa_prefill`` / ``gqa_decode`` with the plan of
+``models.tp``, which splits nothing here). The Mamba2 states rest over
+the dp axes only.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.context import DistContext, no_dist
 from repro_torch.models import attention as attn
+from repro_torch.models import tp as tpm
 from repro_torch.models.layers import (
     apply_norm, dt, init_embedding, init_mlp, init_norm, materialize, mlp,
     remat_fn, unembed,
@@ -118,9 +131,21 @@ def hybrid_forward(params, tokens, cfg: ArchConfig, remat: str = "none"):
     return unembed(x, params["unembed"], dt(cfg.compute_dtype))
 
 
-def hybrid_prefill(params, tokens, cfg: ArchConfig, states):
+def _cache_plan(cfg: ArchConfig, dist: DistContext, on_use: tpm.OnUse):
+    """(plan, cache_seq) of the shared block's cache: the plan only where
+    the cache rests sharded on its sequence."""
+    if not on_use.cache_seq:
+        return None, False
+    return tpm.plan(cfg, dist), True
+
+
+def hybrid_prefill(params, tokens, cfg: ArchConfig, states,
+                   dist: DistContext = no_dist(),
+                   on_use: tpm.OnUse = tpm.OnUse()):
     """Forward + state fill (in place); returns (last-token logits [B,V],
-    states)."""
+    states). Where ``on_use.cache_seq`` the shared block's cache is this
+    rank's block of the sequence of its dp rows."""
+    tp, cache_seq = _cache_plan(cfg, dist, on_use)
     ng, k = _groups(cfg)
     B, S = tokens.shape
     x = _embed(params, tokens, cfg)
@@ -136,16 +161,21 @@ def hybrid_prefill(params, tokens, cfg: ArchConfig, states):
             _write(st_l, new)
             x = x + y.to(x.dtype)
         h = apply_norm(shared["norm1"], x, cfg.norm)
-        y, _ = attn.gqa_prefill(shared["attn"], h, cfg, kv_g, positions)
+        y, _ = attn.gqa_prefill(shared["attn"], h, cfg, kv_g, positions, tp,
+                                cache_seq)
         x = _mlp_residual(shared, x + y, cfg)
     x = apply_norm(params["final_norm"], x[:, -1:, :], cfg.norm)
     logits = unembed(x, params["unembed"], dt(cfg.compute_dtype))
     return logits[:, 0, :], states
 
 
-def hybrid_decode_step(params, states, tokens, lengths, cfg: ArchConfig):
+def hybrid_decode_step(params, states, tokens, lengths, cfg: ArchConfig,
+                       dist: DistContext = no_dist(),
+                       on_use: tpm.OnUse = tpm.OnUse()):
     """tokens [B,1], lengths [B] -> (logits [B,V], states updated in
-    place)."""
+    place); the shared block's attention sequence-parallel where
+    ``on_use.cache_seq``."""
+    tp, cache_seq = _cache_plan(cfg, dist, on_use)
     ng, k = _groups(cfg)
     x = _embed(params, tokens, cfg)
     layers = layer_slices(params["layers"], cfg.n_layers)
@@ -159,7 +189,8 @@ def hybrid_decode_step(params, states, tokens, lengths, cfg: ArchConfig):
             _write(st_l, new)
             x = x + y.to(x.dtype)
         h = apply_norm(shared["norm1"], x, cfg.norm)
-        y, _ = attn.gqa_decode(shared["attn"], h, cfg, kv_g, lengths)
+        y, _ = attn.gqa_decode(shared["attn"], h, cfg, kv_g, lengths, tp,
+                               cache_seq)
         x = _mlp_residual(shared, x + y, cfg)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     logits = unembed(x, params["unembed"], dt(cfg.compute_dtype))

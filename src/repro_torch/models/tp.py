@@ -29,13 +29,23 @@ a region needs no op of its own on the way in and one on the way out:
     computed whole on every rank (a MoE FFN, attention that is not split)
     leaves as this rank's block of its output.
 
+The other families. The hybrid (zamba2) rests its parameters pure FSDP,
+so its plan splits nothing: it carries the ``model`` group, size and rank
+for the shared block's sequence-sharded cache. The encoder-decoder
+(whisper) rests every large dense kernel ``[.., d_in, d_out]`` split over
+``model`` on ``d_out``; its plan names those leaves (``cols``) and says
+whether the splits of ``wq``/``wk``/``wv`` fall on whole heads
+(``heads``) and those of the MLP on ``up`` and ``down`` (``ffn``). Its
+forward takes each split leaf as this rank's columns and gathers the
+activations instead (``models.encdec``). RWKV6 runs pure DP: no plan.
+
 With a ``model`` axis of 1 there is no plan: the forward is the single
 device's, op for op.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, FrozenSet, Optional, Tuple
 
 import torch
 
@@ -56,7 +66,9 @@ class TPPlan:
     whole, and sliced). ``ffn``: the dense MLP on this rank's
     columns. ``vocab``: ``embed``/``unembed`` are this rank's rows of the
     vocabulary. ``seq``: the residual is sequence-parallel (the train
-    forward, where the sequence divides the axis)."""
+    forward, where the sequence divides the axis). ``cols``: the
+    encoder-decoder's dense layers (paths such as ``dec_layers/self/wq``)
+    whose output columns the sanitized spec splits over the axis."""
     group: object
     size: int
     rank: int
@@ -69,6 +81,13 @@ class TPPlan:
     ffn: bool
     vocab: bool
     seq: bool
+    cols: FrozenSet[str] = frozenset()
+
+    @property
+    def splits(self) -> bool:
+        """Whether any leaf is computed as this rank's shard: the ranks
+        of the axis then compute distinct work."""
+        return self.heads or self.ffn or self.vocab or bool(self.cols)
 
     # ------------------------------------------------------------ regions
 
@@ -95,10 +114,12 @@ class TPPlan:
 @dataclass(frozen=True)
 class OnUse:
     """What the sharded steps tell a transformer about what they hand it:
-    ``layer`` turns one layer's parameters as they rest into what its
-    forward takes (the per-layer gather), and ``cache_seq`` says that the
-    cache rests sharded over ``model`` on its sequence."""
-    layer: Callable = lambda p_l: p_l
+    ``layer(p_l, stack)`` turns one layer's parameters of the stack
+    ``stack`` (``layers``, or the encoder-decoder's ``enc_layers`` and
+    ``dec_layers``) as they rest into what its forward takes (the
+    per-layer gather), and ``cache_seq`` says that the attention caches
+    rest sharded over ``model`` on their sequence."""
+    layer: Callable = lambda p_l, stack="layers": p_l
     cache_seq: bool = False
 
 
@@ -129,15 +150,53 @@ def _split(cfg: ArchConfig, dist: DistContext):
     return heads, kv_split, ffn, split_ways(cfg.vocab, m, mesh) == M
 
 
-def plan(cfg: ArchConfig, dist: DistContext) -> Optional[TPPlan]:
+# the encoder-decoder's attention blocks and MLPs (layer stack/block)
+ENCDEC_ATTN = ("enc_layers/attn", "dec_layers/self", "dec_layers/cross")
+ENCDEC_MLP = ("enc_layers/mlp", "dec_layers/mlp")
+
+
+def _encdec_plan(cfg: ArchConfig, dist: DistContext, base: dict,
+                 cols: Optional[FrozenSet[str]]) -> TPPlan:
+    if cols is None:
+        raise ValueError("the encoder-decoder's plan reads which dense "
+                         "layers its sanitized specs split: pass cols")
+    m, M, mesh = dist.model_axis, dist.model_size, dist.mesh
+    hd, H, KVH = cfg.resolved_head_dim, cfg.n_heads, cfg.kv_heads
+    heads = all(f"{b}/{w}" in cols for b in ENCDEC_ATTN
+                for w in ("wq", "wk", "wv")) and not (
+        cuts_units(H, hd, m, mesh) or cuts_units(KVH, hd, m, mesh))
+    ffn = all(f"{b}/{w}" in cols for b in ENCDEC_MLP
+              for w in ("up", "down") + (("gate",) if cfg.glu else ()))
+    n_q, n_kv = (H // M, KVH // M) if heads else (H, KVH)
+    r = base["rank"] if heads else 0
+    return TPPlan(**base, heads=heads, kv_split=heads, q_lo=r * n_q,
+                  n_q=n_q, kv_lo=r * n_kv, n_kv=n_kv, ffn=ffn, vocab=False,
+                  seq=False, cols=cols)
+
+
+def plan(cfg: ArchConfig, dist: DistContext,
+         cols: Optional[FrozenSet[str]] = None) -> Optional[TPPlan]:
     """The plan of ``cfg`` on ``dist``'s mesh for this rank; None without a
-    ``model`` axis of more than one rank."""
+    ``model`` axis of more than one rank, and for RWKV6 (pure DP). The
+    encoder-decoder's takes ``cols``, its dense layers whose sanitized
+    spec splits the output dim over ``model`` (``Model.plan`` passes
+    them)."""
+    if not dist.active or dist.model_size == 1 or cfg.family == "ssm":
+        return None
+    mesh, m = dist.mesh, dist.model_axis
+    base = dict(group=mesh.group(m), size=dist.model_size,
+                rank=axis_index(mesh, m))
+    if cfg.family == "hybrid":       # pure FSDP: nothing split
+        return TPPlan(**base, heads=False, kv_split=False, q_lo=0,
+                      n_q=cfg.n_heads, kv_lo=0, n_kv=cfg.kv_heads, ffn=False,
+                      vocab=False, seq=False)
+    if cfg.family == "audio":
+        return _encdec_plan(cfg, dist, base, cols)
     split = _split(cfg, dist)
     if split is None:
         return None
     heads, kv_split, ffn, vocab = split
-    mesh, m, M = dist.mesh, dist.model_axis, dist.model_size
-    rank = axis_index(mesh, m)
+    M, rank = dist.model_size, base["rank"]
     H = cfg.n_heads
     KVH = H if cfg.attention == "mla" else cfg.kv_heads
     G = H // KVH
@@ -150,9 +209,9 @@ def plan(cfg: ArchConfig, dist: DistContext) -> Optional[TPPlan]:
         n_kv, kv_lo = 1, q_lo // G
     else:
         n_kv, kv_lo = KVH, 0
-    return TPPlan(group=mesh.group(m), size=M, rank=rank, heads=heads,
-                  kv_split=kv_split, q_lo=q_lo, n_q=n_q, kv_lo=kv_lo,
-                  n_kv=n_kv, ffn=ffn, vocab=vocab, seq=dist.seq_parallel)
+    return TPPlan(**base, heads=heads, kv_split=kv_split, q_lo=q_lo,
+                  n_q=n_q, kv_lo=kv_lo, n_kv=n_kv, ffn=ffn, vocab=vocab,
+                  seq=dist.seq_parallel)
 
 
 def local_leaves(cfg: ArchConfig, dist: DistContext) -> Tuple[str, ...]:

@@ -24,10 +24,11 @@ layers to GSPMD, it places and gathers:
    slices) from where it rests to where the forward takes it: the
    leaves the model computes on as this rank's shards
    (``model.local_leaves``: the sharded MoE's experts, and the
-   transformer family's tensor-parallel leaves, which keep their
-   ``model`` split and have their dp dims gathered) at their specs,
-   every other leaf whole. The transformer family's layer leaves are
-   relaid inside the layer loop, one layer at a time (``tp.OnUse``), so
+   transformer family's and the encoder-decoder's tensor-parallel
+   leaves, which keep their ``model`` split and have their dp dims
+   gathered) at their specs, every other leaf whole. Their layer leaves
+   are relaid inside the layer loops, one layer at a time
+   (``tp.OnUse``), so
    the peak holds one layer's weights and remat "full" gathers them
    again in the backward. Each rank's loss is weighted by its share of
    the global batch over its replicas, so the summed gradients are those
@@ -43,8 +44,9 @@ layers to GSPMD, it places and gathers:
 The semantics are the reference's: the same loss and the same update;
 only the traffic differs. The transformer family computes the dense
 layers tensor-parallel over ``model`` (and sequence-parallel under
-``seq_parallel``, ``models.tp``); the other families compute the same
-rows on every rank of ``model``. Every collective call runs in the
+``seq_parallel``, ``models.tp``), and so does the encoder-decoder on its
+resting columns; the hybrid and RWKV6 (pure DP) compute their rows
+whole. Every collective call runs in the
 profiler range ``collectives`` (``dist.collectives``), inside ``forward``
 and ``backward`` where the gathers, the regions and the MoE exchanges
 run.
@@ -195,23 +197,29 @@ def _without_layer(p: Placement) -> Placement:
     return Placement(p.mesh, P(*p.spec[1:]))
 
 
+# the stacks of layer leaves (a leading layer axis) the forward loops over
+LAYER_STACKS = ("layers", "enc_layers", "dec_layers")
+
+
 def _params_on_use(leaves: dict, pl: dict, use: dict, per_layer: bool):
     """(the parameters the forward takes, the ``OnUse`` it takes them
     with): each leaf relaid from where it rests (``pl``) to where the
-    forward takes it (``use``); where ``per_layer``, a layer leaf a layer
-    at a time, by the per-layer gather inside the layer loop."""
+    forward takes it (``use``); where ``per_layer``, a layer leaf (of a
+    stack whose layer axis is not sharded) a layer at a time, by the
+    per-layer gather inside the layer loop."""
     def later(k):
-        return per_layer and k.startswith("layers/")
+        return per_layer and k.split("/", 1)[0] in LAYER_STACKS \
+            and pl[k].spec[:1] in ((), (None,))
     now = {k: v if later(k) else relayout(v, pl[k], use[k])
            for k, v in leaves.items()}
     if not per_layer:
         return unflatten(now), OnUse()
-    inner = {k[len("layers/"):]: (_without_layer(pl[k]),
-                                  _without_layer(use[k]))
+    inner = {k: (_without_layer(pl[k]), _without_layer(use[k]))
              for k in leaves if later(k)}
 
-    def layer(p_l):
-        return unflatten({k: relayout(v, *inner[k])
+    def layer(p_l, stack="layers"):
+        return unflatten({k: relayout(v, *inner[f"{stack}/{k}"])
+                          if f"{stack}/{k}" in inner else v
                           for k, v in flatten(p_l).items()})
     return unflatten(now), OnUse(layer=layer)
 
@@ -370,6 +378,61 @@ def gather_cache(cache, model: Model, like):
         return map_with_specs(gather, cache, cache_shardings(model, like))
 
 
+def seq_cache_leaves(model: Model, cache_like) -> set:
+    """The cache leaves the model reads in place sharded over ``model`` on
+    their sequence (dim 2 of the stacked cache): its attention caches,
+    where the sanitized spec splits their sequence over a ``model`` axis
+    of more than one rank."""
+    if not (model.dist.active and model.dist.model_size > 1):
+        return set()
+    m = model.dist.model_axis
+    return {k for k, p in flatten(cache_shardings(model, cache_like)).items()
+            if len(p.spec) > 2 and m in entry_axes(p.spec[2])}
+
+
+def make_init_cache(model: Model, cache_like):
+    """Returns ``init_cache(params, batch, B, max_seq)``: this rank's
+    shards of the cache ``model.init_cache`` gives whole, made on the
+    rank (the counterpart of the reference's ``model.init_cache`` on its
+    mesh); ``model.init_cache`` itself without a mesh. ``params`` are this
+    rank's shards of ``param_shardings``, ``batch`` the global inputs, the
+    same on every rank, and ``cache_like`` the full cache's shapes. Each
+    rank runs ``model.init_cache`` on its rows of ``batch`` (split as the
+    decode splits them), for the rows and positions its shards hold (its
+    block of ``max_seq`` where the cache rests sequence-sharded). Where
+    the cache comes from the parameters (the encoder-decoder's cross
+    K/V), they go in as the serving steps take them: the encoder and each
+    layer's cross K/V run on this rank's columns, every head gathered
+    into the cross cache, which rests whole over ``model``."""
+    if not model.dist.active:
+        return model.init_cache
+    mesh, M = model.dist.mesh, model.dist.model_size
+    pl = flatten(param_shardings(model))
+    use = _use_placements(model, pl)
+    cpl = flatten(cache_shardings(model, cache_like))
+    seq = seq_cache_leaves(model, cache_like)
+    specs = model.batch_specs(ShapeConfig("decode", 1, 1, "decode"))
+    from_params = model.cfg.enc_dec is not None
+
+    def init_cache(params, batch, B, max_seq):
+        rows = {k: _split_rows(v, sanitize_spec(
+            specs.get(k, P()), tuple(v.shape), mesh), mesh)[0]
+            for k, v in batch.items()}
+        ways = {axis_size(mesh, entry_axes(p.spec[1])) for p in cpl.values()}
+        if len(ways) != 1 or B % min(ways):
+            raise ValueError(f"{B} rows do not share out over the cache's "
+                             f"row splits {sorted(ways)}")
+        local_b = B // ways.pop()
+        local_s = max_seq // M if seq else max_seq
+        with torch.no_grad():
+            if from_params:
+                full, on_use = _params_on_use(flatten(params), pl, use,
+                                              model.per_layer_gathers)
+                return model.init_cache(full, rows, local_b, local_s, on_use)
+            return model.init_cache(params, rows, local_b, local_s)
+    return init_cache
+
+
 def make_serve_steps(model: Model, cache_like):
     """Returns ``(prefill, decode_step)`` with the model's own signatures,
     ``prefill(params, batch, cache)`` and ``decode_step(params, cache,
@@ -384,19 +447,23 @@ def make_serve_steps(model: Model, cache_like):
     * ``params`` are this rank's shards of the sanitized
       ``model.param_specs()``, each relaid on use to where the forward
       takes it (the local leaves as shards, every other leaf whole; the
-      transformer family's layer leaves one layer at a time);
+      transformer family's and whisper's layer leaves one layer at a
+      time);
     * the inputs are the global batch, the same on every rank; each rank
       runs its rows, split as ``model.batch_specs`` of a prefill or a
       decode (sanitized to the inputs) splits ``tokens``;
     * ``cache`` is this rank's shards of the sanitized
-      ``model.cache_specs()`` (``shard_cache``). The transformer family
-      reads and writes them in place: prefill sends its heads' K/V to the
-      ranks that hold their positions and the decode is
-      sequence-parallel, where the cache's sequence rests sharded over
-      ``model`` (``models.attention``). For the other families the cache
-      is relaid (``dist.sharding.relayout``) to this rank's rows with
-      every other dim whole, and the updated cache relaid back into this
-      rank's shards in place. The shards are returned.
+      ``model.cache_specs()`` (``shard_cache``). The attention caches
+      whose sequence rests sharded over ``model`` (the transformer
+      family's, the hybrid's shared-block ``kv`` and whisper's ``self``)
+      are read and written in place: prefill sends its K/V to the ranks
+      that hold their positions and the decode is sequence-parallel
+      (``models.attention``). Every other leaf is passed in place where
+      its shard is this rank's rows of it, and otherwise relaid
+      (``dist.sharding.relayout``) to this rank's rows with every other
+      dim whole, the updated leaf relaid back into this rank's shard in
+      place (the hybrid's Mamba2 states in its prefill, whose rows split
+      over ``model`` too). The shards are returned.
 
     The logits are this rank's rows."""
     mesh = model.dist.mesh if model.dist.active else None
@@ -404,10 +471,7 @@ def make_serve_steps(model: Model, cache_like):
     use = _use_placements(model, pl)
     cpl = flatten(cache_shardings(model, cache_like))
     per_layer = model.per_layer_gathers
-    # the transformer's cache rests sharded over model on its sequence
-    m = model.dist.model_axis
-    cache_seq = per_layer and model.dist.model_size > 1 and all(
-        m in entry_axes(p.spec[2]) for p in cpl.values())
+    seq = seq_cache_leaves(model, cache_like)
     kinds = {kind: model.batch_specs(ShapeConfig(kind, 1, 1, kind))
              for kind in ("prefill", "decode")}
 
@@ -422,30 +486,39 @@ def make_serve_steps(model: Model, cache_like):
         row_axes = sane["tokens"][0] if mesh is not None else None
         return local, Placement(mesh, P(None, row_axes))
 
+    def blocks(p: Placement):
+        """The axes of more than one rank that split each dim."""
+        out = [tuple(a for a in entry_axes(e) if mesh.shape[a] > 1)
+               for e in p.spec]
+        while out and not out[-1]:
+            out.pop()
+        return out
+
     def call(fn, kind, params, batch, cache):
         local, rows_use = rows(batch, kinds[kind])
         with torch.no_grad():
             full, on_use = _params_on_use(flatten(params), pl, use,
                                           per_layer)
-            if per_layer:
-                logits, _ = fn(full, local, cache, dataclasses.replace(
-                    on_use, cache_seq=cache_seq))
-                return logits, cache
             rest = flatten(cache)
-            on = {k: relayout(v, cpl[k], rows_use) for k, v in rest.items()}
-            logits, new = fn(full, local, unflatten(on))
+            same = {k for k in rest if k in seq or mesh is None
+                    or blocks(cpl[k]) == blocks(rows_use)}
+            on = {k: v if k in same else relayout(v, cpl[k], rows_use)
+                  for k, v in rest.items()}
+            logits, new = fn(full, local, unflatten(on), dataclasses.replace(
+                on_use, cache_seq=bool(seq)))
             for k, v in flatten(new).items():
-                if v is rest[k]:        # updated in place, never relaid
+                if k in same and v is rest[k]:  # updated in place
                     continue
-                rest[k].copy_(relayout(v, rows_use, cpl[k]))
+                src = cpl[k] if k in same else rows_use
+                rest[k].copy_(relayout(v, src, cpl[k]))
         return logits, cache
 
     def prefill(params, batch, cache):
         return call(model.prefill, "prefill", params, batch, cache)
 
     def decode_step(params, cache, tokens, lengths):
-        return call(lambda p, b, c, *on_use: model.decode_step(
-            p, c, b["tokens"], b["lengths"], *on_use), "decode", params,
+        return call(lambda p, b, c, on_use: model.decode_step(
+            p, c, b["tokens"], b["lengths"], on_use), "decode", params,
             {"tokens": tokens, "lengths": lengths}, cache)
 
     return prefill, decode_step

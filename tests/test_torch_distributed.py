@@ -23,7 +23,7 @@ from repro.configs import get_arch as jget_arch
 from repro.models import moe as jmoe
 from repro_torch.bridge import flatten, params_from_jax
 from repro_torch.configs import get_arch
-from repro_torch.dist.context import no_dist
+from repro_torch.dist.context import make_dist, no_dist
 from repro_torch.dist.sharding import P, Placement, shard
 from repro_torch.models import moe
 from repro_torch.models.api import build_model
@@ -31,6 +31,7 @@ from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.elastic import elastic_restore
 from repro_torch.train.loop import make_train_step
 from repro_torch.train.optimizer import OptConfig, init_opt_state
+from test_torch_serve_dist import FakeMesh
 from torch_dist_ranks import launch, moe_variant_cfg
 
 pytestmark = pytest.mark.slow
@@ -144,13 +145,18 @@ for name, run in RUNS.items():
     model = build_model(cfg, make_dist(mesh, zero1=run['zero1'],
                                        seq_parallel=run['seq_parallel']))
     opt = OptConfig(lr=1e-3)
-    batch = {'tokens': jax.random.randint(jax.random.key(1), (8, 64), 0, cfg.vocab),
-             'targets': jax.random.randint(jax.random.key(2), (8, 64), 0, cfg.vocab)}
+    S = run.get('seq', 64)
+    batch = {'tokens': jax.random.randint(jax.random.key(1), (8, S), 0, cfg.vocab),
+             'targets': jax.random.randint(jax.random.key(2), (8, S), 0, cfg.vocab)}
+    specs = {'tokens': P('data', None), 'targets': P('data', None)}
+    if cfg.enc_dec is not None:     # the encoder-decoder's frames
+        batch['frames'] = jax.random.normal(
+            jax.random.key(3), (8, cfg.enc_dec.n_frames, cfg.d_model)) * 0.5
+        specs['frames'] = P('data', None, None)
     with mesh:
         state = init_train_state(model, jax.random.key(0), opt)
         out.update(flat(state['params'], name + '/init/'))
-        step = jit_train_step(model, opt, grad_accum=2, batch_specs={
-            'tokens': P('data', None), 'targets': P('data', None)})
+        step = jit_train_step(model, opt, grad_accum=2, batch_specs=specs)
         losses, gnorms = [], []
         for _ in range(4):
             state, m = step(state, batch)
@@ -188,7 +194,20 @@ TRAIN_RUNS = {
     "qwen-kv2": dict(arch="qwen1.5-0.5b", over=dict(kv_heads=2),
                      zero1=False),
 }
-for _run in TRAIN_RUNS.values():
+# whisper's sharded train step, its dense layers computed on their
+# 'model' columns: the reduced whisper splits nothing (every leaf under
+# 2^16 elements rests replicated), so it runs widened to d_model 256, 8
+# heads of 32, which a 'model' axis of 4 splits in whole heads (FSDP and
+# ZeRO-1), and 2 heads of 128, which it cuts (FSDP; the (16, 16) case of
+# whisper-large-v3's 20 heads)
+WIDE = dict(d_model=256, d_ff=512, n_heads=8, kv_heads=8, head_dim=32)
+CUT = dict(d_model=256, d_ff=512, n_heads=2, kv_heads=2, head_dim=128)
+WHISPER_RUNS = {f"whisper-{h}-{z}": dict(arch="whisper-large-v3", over=over,
+                                         zero1=z == "zero1", seq=16)
+                for h, over, z in (("heads", WIDE, "fsdp"),
+                                   ("heads", WIDE, "zero1"),
+                                   ("cut", CUT, "fsdp"))}
+for _run in (*TRAIN_RUNS.values(), *WHISPER_RUNS.values()):
     _run.setdefault("seq_parallel", False)
 
 # name -> the reference's moe_block settings: reduced deepseek-v3 at 8
@@ -228,8 +247,10 @@ def moe_ref(tmp_path_factory):
 @pytest.fixture(scope="module")
 def train_ref(tmp_path_factory):
     d = tmp_path_factory.mktemp("train")
-    return d / "ref.npz", _reference(TRAIN, d / "ref.npz", RUNS=TRAIN_RUNS,
-                                     CKPT=str(d / "ckpt")), d / "ckpt"
+    return d / "ref.npz", _reference(
+        TRAIN, d / "ref.npz", timeout=420,
+        RUNS={**TRAIN_RUNS, **WHISPER_RUNS},
+        CKPT=str(d / "ckpt")), d / "ckpt"
 
 
 class _Coords:
@@ -360,10 +381,10 @@ def test_sharded_moe_matches_local_and_reference(moe_ref, tmp_path):
                for n in MOE_VARIANTS if "-2.0-" in n)
 
 
-def _single_device_run(ref, name, rows=None):
+def _single_device_run(ref, name, rows=None, runs=TRAIN_RUNS):
     """The port's single-device step from the same weights and batch (its
     first ``rows`` rows): (losses, grad norms)."""
-    run = TRAIN_RUNS[name]
+    run = runs[name]
     model = build_model(dataclasses.replace(
         get_arch(run["arch"]).reduced(), **run["over"]), "cpu")
     opt = OptConfig(lr=1e-3)
@@ -376,6 +397,8 @@ def _single_device_run(ref, name, rows=None):
     step = make_train_step(model, opt, grad_accum=2)
     batch = {k: torch.from_numpy(ref[f"{name}/{k}"][:rows].astype(np.int64))
              for k in ("tokens", "targets")}
+    if f"{name}/frames" in ref:
+        batch["frames"] = torch.from_numpy(ref[f"{name}/frames"][:rows])
     losses, gnorms = [], []
     for _ in range(4):
         state, m = step(state, batch)
@@ -405,6 +428,35 @@ def test_sharded_train_step_matches_reference(train_ref, tmp_path, name):
                    name=name, **TRAIN_RUNS[name])
     single = _single_device_run(ref, name) \
         if TRAIN_RUNS[name]["arch"] == "qwen1.5-0.5b" else None
+    check_train_run(ref, ranks, name, single)
+
+
+@pytest.mark.parametrize("name", list(WHISPER_RUNS))
+def test_whisper_sharded_train_step_matches_reference(train_ref, tmp_path,
+                                                      name):
+    """The widened whisper on (2, 4), grad_accum 2, its dense layers on
+    this rank's columns (the local leaves are the 16 split dense layers):
+    FSDP and ZeRO-1 with heads whole, FSDP with a cut head; against the
+    reference's Auto-mesh run at the tolerances of
+    ``test_sharded_train_step_matches_reference``, and the losses within
+    1e-5 and the gradient norms within 1e-5 relative of the port's single
+    device."""
+    path, ref, _ = train_ref
+    run = WHISPER_RUNS[name]
+    local = build_model(dataclasses.replace(
+        get_arch(run["arch"]).reduced(), **run["over"]), "cpu", make_dist(
+        FakeMesh(data=2, model=4), zero1=run["zero1"])).local_leaves
+    assert len(local) == 16 and "dec_layers/cross/wq/w" in local
+    ranks = launch("train", 8, tmp_path, timeout=240, ref=str(path),
+                   name=name, **run)
+    check_train_run(ref, ranks, name,
+                    _single_device_run(ref, name, runs=WHISPER_RUNS))
+
+
+def check_train_run(ref, ranks, name, single=None):
+    """A sharded train run's ranks against the reference's run ``name``
+    (and the port's single device's (losses, grad norms) where given), at
+    ``test_sharded_train_step_matches_reference``'s tolerances."""
     for got in ranks:
         np.testing.assert_allclose(got["losses"], ref[name + "/losses"],
                                    rtol=1e-4, atol=0)

@@ -9,6 +9,8 @@ The reference runs in a subprocess with 8 fake XLA devices
 logits and final caches as numpy; the port runs as 8 gloo ranks
 (``torch_dist_ranks.launch``) from those parameters and prompts."""
 
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -70,7 +72,16 @@ def test_cache_specs_without_a_mesh_replicate(arch):
 # hybrid, and the audio encoder-decoder (whose prefill leaves the cache
 # unfilled, so its decode starts at length 0); and the dense one with 2
 # K/V heads, which the spec cuts on a 'model' axis of 4, decoding across
-# the edge of the first sequence shard (positions 0-7 of 32)
+# the edge of the first sequence shard (positions 0-7 of 32). Then the
+# runs whose cache the ranks make from their shards (``sharded_init``,
+# ``train.loop.make_init_cache``: whisper's encoder and cross K/V
+# tensor-parallel): the hybrid (one prefill row a rank, its rows split
+# over 'model' too) decoding across that edge, and whisper widened to
+# d_model 256, as the reduced one splits nothing (every leaf under 2^16
+# elements), with 8 heads of 32 (whole on a 'model' axis of 4; from
+# length 0) and 2 heads of 128 (cut; from length 6, over the edge)
+WIDE = dict(d_model=256, d_ff=512, n_heads=8, kv_heads=8, head_dim=32)
+CUT = dict(d_model=256, d_ff=512, n_heads=2, kv_heads=2, head_dim=128)
 RUNS = {
     "dense": {"arch": "qwen1.5-0.5b", "over": {}, "start": 16},
     "dense-kv2": {"arch": "qwen1.5-0.5b", "over": {"kv_heads": 2},
@@ -78,10 +89,22 @@ RUNS = {
     "moe": {"arch": "deepseek-v3-671b", "over": {}, "start": 16},
     "hybrid": {"arch": "zamba2-2.7b", "over": {}, "start": 16},
     "audio": {"arch": "whisper-large-v3", "over": {}, "start": 0},
+    "hybrid-edge": {"arch": "zamba2-2.7b", "over": {}, "start": 6,
+                    "prompt": 6, "sharded_init": True},
+    "audio-heads": {"arch": "whisper-large-v3", "over": WIDE, "start": 0,
+                    "sharded_init": True},
+    "audio-cut": {"arch": "whisper-large-v3", "over": CUT, "start": 6,
+                  "sharded_init": True},
 }
 for _r in RUNS.values():
     _r.update(B=8, S=32, steps=4)
     _r.setdefault("prompt", 16)
+# the sequence-sharded cache leaves of the hybrid and the audio runs, read
+# and written in place by the sharded steps
+SEQ_LEAVES = {"hybrid": ("kv/k", "kv/v"), "hybrid-edge": ("kv/k", "kv/v"),
+              "audio": ("self/k", "self/v"),
+              "audio-heads": ("self/k", "self/v"),
+              "audio-cut": ("self/k", "self/v")}
 
 SERVE = """
 import dataclasses, json
@@ -151,14 +174,20 @@ def serve_ref(tmp_path_factory):
     return out
 
 
+@pytest.fixture(scope="module")
+def serve_ranks(serve_ref, tmp_path_factory):
+    """Every rank's results of ``RUNS`` on (2, 4), from one launch."""
+    return launch("serve", 8, tmp_path_factory.mktemp("serve_ranks"),
+                  timeout=360, ref=str(serve_ref), runs=RUNS)
+
+
 def test_sharded_prefill_and_decode_match_the_reference(serve_ref,
-                                                        tmp_path):
+                                                        serve_ranks):
     """For each family: the last logits of the prefill and of 4 greedy
     decode steps within 1e-4 of the reference's, the greedy tokens
     equal, and the final cache (gathered from the shards) within 1e-5 of
     its scale."""
-    ranks = launch("serve", 8, tmp_path, timeout=300, ref=str(serve_ref),
-                   runs=RUNS)
+    ranks = serve_ranks
     ref = np.load(serve_ref)
     for r, got in enumerate(ranks):
         for name, run in RUNS.items():
@@ -175,3 +204,51 @@ def test_sharded_prefill_and_decode_match_the_reference(serve_ref,
             for k in keys:
                 scale = max(np.abs(ref[k]).max(), 1e-30)
                 assert np.abs(got[k] - ref[k]).max() <= 1e-5 * scale, k
+
+
+def test_sharded_prefill_and_decode_read_the_cache_in_place(serve_ref,
+                                                            serve_ranks):
+    """The shared block's ``kv`` cache of the hybrid and whisper's
+    ``self`` cache are never relaid by the sharded steps (no relayout of
+    a shard of theirs, whisper's heads whole or cut), while the hybrid's
+    prefill does relay its Mamba2 states (its rows split over
+    ``model``); the values are held to the reference by
+    ``test_sharded_prefill_and_decode_match_the_reference``."""
+    ref = np.load(serve_ref)
+    for got in serve_ranks:
+        for name, leaves in SEQ_LEAVES.items():
+            pre = name + "/"
+            relaid = {tuple(s) for s in json.loads(str(got[pre + "relaid"]))}
+
+            def shard(leaf, dims):   # [stack, B/2, S/4 or S, ...]
+                a = ref[pre + "cache/" + leaf]
+                return (a.shape[0], a.shape[1] // 2,
+                        a.shape[2] // dims) + a.shape[3:]
+            for leaf in leaves:
+                assert shard(leaf, 4) not in relaid, (name, leaf)
+            if name.startswith("hybrid"):
+                assert shard("mamba/conv", 1) in relaid
+
+
+def test_hybrid_prefill_sends_rows_to_their_positions(tmp_path):
+    """The hybrid's prefill rows split over ``data`` and ``model`` (1 and
+    2 rows a rank), a 13-position prompt written into a 16-position cache
+    resting with its rows over ``data`` and its sequence over ``model``
+    (``attention._write_prefill``): each rank's shard is its rows' block
+    of positions, zero past the prompt."""
+    rng = np.random.default_rng(0)
+    arrays = {f"k{n}": rng.standard_normal((8 * n, 13, 2, 4)).astype(
+        np.float32) for n in (1, 2)}
+    np.savez(tmp_path / "rows.npz", **arrays)
+    ranks = launch("rows_to_seq", 8, tmp_path, timeout=120,
+                   ref=str(tmp_path / "rows.npz"), names=list(arrays),
+                   smax=16)
+    for name, k in arrays.items():
+        full = np.zeros((k.shape[0], 16) + k.shape[2:], np.float32)
+        full[:, :13] = k
+        Bd = k.shape[0] // 2
+        for r, got in enumerate(ranks):
+            d, j = divmod(r, 4)
+            np.testing.assert_array_equal(
+                got[name], full[d * Bd:(d + 1) * Bd, j * 4:(j + 1) * 4],
+                err_msg=(name, r))

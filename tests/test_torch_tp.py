@@ -2,11 +2,12 @@
 process, on the CPU: ``flash_decode``'s log-sum-exp (its plain version,
 against a direct fp64 log-sum-exp), ``merge_partials`` over sequence
 shards of a cache against the whole-cache call, the sanitized-spec tests
-of a head split (``dist.sharding``) and the transformer's plan on the
-reference's meshes (``models.tp``). The multi-rank paths are held to the
-reference in ``test_torch_distributed.py`` and ``test_torch_serve_dist.py``;
-the kernel's log-sum-exp to its plain version on the card
-(``chip_smoke.py`` phase 3)."""
+of a head split (``dist.sharding``) and the plans of the transformer,
+whisper and zamba2 on the reference's meshes (``models.tp``). The
+multi-rank paths are held to the reference in
+``test_torch_distributed.py`` and ``test_torch_serve_dist.py``; the
+kernel's log-sum-exp to its plain
+version on the card (``chip_smoke.py`` phase 3)."""
 import dataclasses
 import math
 
@@ -19,6 +20,7 @@ from repro_torch.dist.context import make_dist
 from repro_torch.dist.sharding import P, cuts_units, keep_axes, split_ways
 from repro_torch.kernels import ops
 from repro_torch.models import tp as tpm
+from repro_torch.models.api import build_model
 from repro_torch.models.attention import _kv_heads, merge_partials
 from repro_torch.models.transformer import lm_local_leaves
 
@@ -171,3 +173,71 @@ def test_plan_cuts_a_kv_head_of_the_reduced_qwen():
     assert tpm.plan(cfg, make_dist(FakeMesh(data=8, model=1))) is None
     local = lm_local_leaves(cfg, make_dist(FakeMesh(data=2, model=4)))
     assert "layers/attn/wk/w" not in local and "layers/attn/wq/w" in local
+
+
+ENCDEC_LEAVES = {f"{b}/{w}" for b in tpm.ENCDEC_ATTN
+                 for w in ("wq", "wk", "wv", "wo")} | {
+    f"{b}/{w}" for b in tpm.ENCDEC_MLP for w in ("up", "down")}
+
+
+@pytest.mark.parametrize("mesh,heads", [("2x4", True), ("16x16", False)])
+def test_plan_of_whisper(mesh, heads):
+    """whisper-large-v3 (20 heads of 64, d_ff 5,120): every dense layer's
+    output dim split over ``model``; on (2, 4) in whole heads (5 a rank),
+    on (16, 16) not (80 columns a rank, 1.25 heads); the MLP's columns
+    split on both; the tied embedding whole; no sequence parallelism. The
+    local leaves are the split dense layers at their ``model`` entry."""
+    cfg = get_arch("whisper-large-v3")
+    shape = dict(data=2, model=4) if mesh == "2x4" else dict(data=16,
+                                                             model=16)
+    M = shape["model"]
+    for r in (0, M - 1):
+        dist = make_dist(FakeMesh({"data": 0, "model": r}, **shape))
+        tp = build_model(cfg, "cpu", dist).plan()
+        assert tp.cols == ENCDEC_LEAVES
+        assert (tp.heads, tp.ffn, tp.vocab, tp.seq) == (heads, True, False,
+                                                        False)
+        assert tp.splits
+        if heads:
+            assert (tp.n_q, tp.q_lo, tp.n_kv, tp.kv_lo) == (5, 5 * r, 5,
+                                                            5 * r)
+    local = build_model(cfg, "cpu", dist).local_leaves
+    assert set(local) == {k + "/w" for k in ENCDEC_LEAVES}
+    assert local["dec_layers/self/wq/w"] == P(None, None, "model")
+    assert "embed" not in local
+
+
+@pytest.mark.parametrize("over,heads", [
+    (dict(d_model=256, d_ff=512, n_heads=8, kv_heads=8, head_dim=32), True),
+    (dict(d_model=256, d_ff=512, n_heads=2, kv_heads=2, head_dim=128),
+     False),
+    ({}, None),
+])
+def test_plan_of_the_reduced_whisper(over, heads):
+    """The reduced whisper splits nothing (every leaf under 2^16 elements
+    rests replicated); widened to d_model 256 it splits every dense layer,
+    in whole heads at 8 heads of 32 on a ``model`` axis of 4 and cutting
+    them at 2 heads of 128."""
+    cfg = dataclasses.replace(get_arch("whisper-large-v3").reduced(), **over)
+    tp = build_model(cfg, "cpu", make_dist(FakeMesh(data=2, model=4))).plan()
+    if heads is None:
+        assert not tp.cols and not tp.splits and not tp.heads
+        return
+    assert tp.cols == ENCDEC_LEAVES and tp.ffn and tp.heads == heads
+
+
+@pytest.mark.parametrize("mesh", ["2x4", "16x16"])
+def test_plan_of_zamba2_splits_nothing(mesh):
+    """The hybrid rests pure FSDP: its plan carries the ``model`` group,
+    size and rank for the shared block's cache and splits nothing; RWKV6
+    (pure DP) has no plan."""
+    shape = dict(data=2, model=4) if mesh == "2x4" else dict(data=16,
+                                                             model=16)
+    dist = make_dist(FakeMesh({"data": 0, "model": 3}, **shape))
+    tp = tpm.plan(get_arch("zamba2-2.7b"), dist)
+    assert (tp.size, tp.rank) == (shape["model"], 3)
+    assert not (tp.heads or tp.ffn or tp.vocab or tp.seq or tp.cols)
+    assert not tp.splits
+    assert build_model(get_arch("zamba2-2.7b"), "cpu", dist).local_leaves \
+        == {}
+    assert tpm.plan(get_arch("rwkv6-3b"), dist) is None

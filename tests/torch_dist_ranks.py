@@ -174,12 +174,14 @@ def _case_train(params, rank):
                             if k.startswith(pre + "init/")}, "cpu")
     state = shard_train_state({"params": full,
                                "opt": init_opt_state(full, opt)}, model, opt)
-    step = make_train_step(
-        model, opt, grad_accum=2,
-        batch_specs={"tokens": P("data", None), "targets": P("data", None)})
+    specs = {"tokens": P("data", None), "targets": P("data", None)}
     batch = {k: torch.from_numpy(ref[pre + k][:params.get("rows")]
                                  .astype(np.int64))
              for k in ("tokens", "targets")}
+    if pre + "frames" in ref.files:     # the encoder-decoder's
+        specs["frames"] = P("data", None, None)
+        batch["frames"] = torch.from_numpy(ref[pre + "frames"])
+    step = make_train_step(model, opt, grad_accum=2, batch_specs=specs)
     losses, gnorms = [], []
     for _ in range(4):
         state, m = step(state, batch)
@@ -237,6 +239,48 @@ def _rows_global(x, spec, mesh):
     return relayout(x, Placement(mesh, P(spec[0])), Placement(mesh, P()))
 
 
+class _recording:
+    """Replaces ``module.name`` by a wrapper that records the shape of
+    each call's first argument (``fn`` keeps the original)."""
+
+    def __init__(self, module, name):
+        self.fn, self.shapes = getattr(module, name), []
+
+        def wrapper(x, *a, **k):
+            self.shapes.append(tuple(x.shape))
+            return self.fn(x, *a, **k)
+        setattr(module, name, wrapper)
+
+
+def _case_rows_to_seq(params, rank):
+    """The hybrid prefill's cache write on (2, 4) with its rows split over
+    ``model`` too (``attention._write_prefill``): each rank's rows of a
+    [B, S, KVH, hd] K from the reference's array, written into its
+    shard of a zeroed [B, Smax, ...] cache (rows over ``data``, the
+    sequence over ``model``)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.context import make_dist
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import tp as tpm
+    from repro_torch.models.attention import _write_prefill
+    ref = np.load(params["ref"])
+    mesh = make_test_mesh((2, 4), ("data", "model"))
+    tp = tpm.plan(get_arch("zamba2-2.7b").reduced(), make_dist(mesh))
+    out = {}
+    for name in params["names"]:
+        k = torch.from_numpy(ref[name])
+        B, S = k.shape[:2]
+        d, j = mesh.coords["data"], mesh.coords["model"]
+        Bd, Sr = B // 2, params["smax"] // 4
+        b = Bd // 4
+        rows = k[d * Bd + j * b:d * Bd + (j + 1) * b]
+        cache = {"k": torch.zeros((Bd, Sr) + tuple(k.shape[2:]))}
+        _write_prefill(cache, {"k": rows}, S, tp, True)
+        out[name] = cache["k"].numpy()
+    return out
+
+
 def _case_serve(params, rank):
     """The sharded prefill and greedy decode steps (``make_serve_steps``)
     of each run on (2, 4), from the reference's parameters and prompt;
@@ -249,8 +293,10 @@ def _case_serve(params, rank):
     from repro_torch.dist.sharding import map_with_specs, sanitize_spec, shard
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models.api import build_model
-    from repro_torch.train.loop import (gather_cache, make_serve_steps,
-                                        param_shardings, shard_cache)
+    from repro_torch.train import loop
+    from repro_torch.train.loop import (gather_cache, make_init_cache,
+                                        make_serve_steps, param_shardings,
+                                        shard_cache)
     ref = np.load(params["ref"])
     mesh = make_test_mesh((2, 4), ("data", "model"))
     out = {}
@@ -269,11 +315,15 @@ def _case_serve(params, rank):
         if cfg.enc_dec is not None:
             batch["frames"] = torch.from_numpy(ref[pre + "frames"])
         full_cache = model.init_cache(full, batch, B, S)
-        cache = shard_cache(full_cache, model)
+        if run.get("sharded_init"):     # made on the ranks, from shards
+            cache = make_init_cache(model, full_cache)(p, batch, B, S)
+        else:
+            cache = shard_cache(full_cache, model)
         prefill, decode = make_serve_steps(model, full_cache)
         spec = {kind: sanitize_spec(model.batch_specs(ShapeConfig(
             kind, 1, B, kind))["tokens"], (B, 1), mesh)
             for kind in ("prefill", "decode")}
+        relaid = _recording(loop, "relayout")
         logits, cache = prefill(p, batch, cache)
         logits = _rows_global(logits, spec["prefill"], mesh)
         out[pre + "prefill"] = logits.numpy()
@@ -284,6 +334,9 @@ def _case_serve(params, rank):
             logits = _rows_global(logits, spec["decode"], mesh)
             out[f"{pre}decode/{i}"] = logits.numpy()
             lengths = lengths + 1
+        loop.relayout = relaid.fn
+        # the shapes of what the steps relaid (weights and cache leaves)
+        out[pre + "relaid"] = np.array(json.dumps(sorted(set(relaid.shapes))))
         out.update({pre + "cache/" + k: v for k, v in _flat_np(
             gather_cache(cache, model, full_cache)).items()})
     return out
@@ -343,7 +396,8 @@ def _case_count(params, rank):
 
 CASES = {"collectives": _case_collectives, "gpipe": _case_gpipe,
          "moe": _case_moe, "train": _case_train, "elastic": _case_elastic,
-         "serve": _case_serve, "count": _case_count}
+         "serve": _case_serve, "count": _case_count,
+         "rows_to_seq": _case_rows_to_seq}
 
 
 def main(case, rank, world, workdir):
