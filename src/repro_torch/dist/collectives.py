@@ -8,10 +8,10 @@ reference's are under ``jax.grad``: ``all_gather`` (tiled, along a dim;
 backward the reduce-scatter), ``reduce_scatter`` (the reverse),
 ``psum`` / ``pmean`` (backward the same sum), ``all_to_all`` (tiled on dim
 0; backward the reverse exchange), and ``pmax`` (no gradient: a shift,
-as a softmax's max). Every call runs inside the profiler range
-``collectives``. Each backward is the transpose of its forward, so a
-sharded program's gradients are the sum of what its ranks' backwards
-give: the tensor-parallel regions of ``models.tp`` are these primitives
+as a softmax's max). Every call runs inside the span ``collectives``
+(``repro_torch.obs``: a profiler range under a profile). Each backward
+is the transpose of its forward, so a sharded program's gradients are
+the sum of what its ranks' backwards give: the tensor-parallel regions of ``models.tp`` are these primitives
 (the all-gather and reduce-scatter over a sequence, the all-reduce
 out of a row-parallel product). A tensor must lie on the group's own device kind:
 CUDA for NCCL, the CPU for gloo, either for the ``fake`` backend of a
@@ -34,7 +34,8 @@ import threading
 
 import torch
 import torch.distributed as tdist
-from torch.profiler import record_function
+
+from repro_torch import obs
 
 
 _span = threading.local()
@@ -42,12 +43,12 @@ _span = threading.local()
 
 @contextlib.contextmanager
 def _call():
-    """The span of one process-group call, in the profiler range
-    ``collectives``. Ops that the backend runs inside it are its own (gloo
-    copies a reduce-scatter's result out with ``split`` and ``copy_``
-    while the caller waits); ``in_call`` tells a cost count
-    (``roofline.op_cost``) to leave them out."""
-    with record_function("collectives"):
+    """The span of one process-group call, the recorder's span
+    ``collectives`` (``repro_torch.obs``). Ops that the backend runs inside
+    it are its own (gloo copies a reduce-scatter's result out with
+    ``split`` and ``copy_`` while the caller waits); ``in_call`` tells a
+    cost count (``roofline.op_cost``) to leave them out."""
+    with obs.call("collectives"):
         _span.active = True
         try:
             yield

@@ -14,10 +14,11 @@ import ctypes
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build
 
-# kernel launches since the last reset (see kernels.ops.reset_launch_counts)
-launches = 0
+# the counter of this kernel's launches (see kernels.ops.launch_counts)
+LAUNCHES = "kernels.chacha20.launches"
 
 MAX_BLOCKS = 1 << 32        # one counter space: more blocks repeat the stream
 
@@ -30,7 +31,6 @@ def keystream(key: torch.Tensor, nonce: torch.Tensor, counter0: int,
     """key [8] u32, nonce [3] u32 (little-endian words), counter0 in
     [0, 2^32) -> [n_blocks, 16] u32, row i the block for counter
     ``counter0 + i`` (mod 2^32). Any n_blocks up to 2^32: no tile multiple."""
-    global launches
     for nm, t, n in (("key", key, 8), ("nonce", nonce, 3)):
         if t.device.type != "cuda":
             raise ValueError(f"chacha20: {nm} is on {t.device}; the kernel "
@@ -50,5 +50,5 @@ def keystream(key: torch.Tensor, nonce: torch.Tensor, counter0: int,
     err = fn(key.data_ptr(), nonce.data_ptr(), counter0, n_blocks,
              out.data_ptr(), torch.cuda.current_stream(key.device).cuda_stream)
     build.check("chacha20", err, "chacha20")
-    launches += 1
+    obs.count(LAUNCHES)
     return out

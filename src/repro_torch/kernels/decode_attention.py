@@ -25,10 +25,11 @@ import functools
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build
 
-# kernel launches since the last reset (see kernels.ops.reset_launch_counts)
-launches = 0
+# the counter of this kernel's launches (see kernels.ops.launch_counts)
+LAUNCHES = "kernels.flash_decode.launches"
 
 MAX_GROUP = 16          # query heads per KV head the kernel instantiates
 SPLIT_ALIGN = 32        # a chunk of the cache is a multiple of this ...
@@ -85,7 +86,6 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Positions ``>= lengths[b]`` contribute nothing (a length of 0 gives a
     zero output). k and v may be any strided view with a contiguous last
     dimension, such as the model cache ``[B,S,KVH,D]`` permuted."""
-    global launches
     code = build.check_operands("flash_decode", q=q, k=k, v=v)
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_decode: shapes q {tuple(q.shape)}, "
@@ -125,5 +125,5 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              S, D, chunk, splits, strides,
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check("flash_decode", err, "flash_decode")
-    launches += 1
+    obs.count(LAUNCHES)
     return (o, lse) if with_lse else o

@@ -18,10 +18,11 @@ import ctypes
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import build
 
-# kernel launches since the last reset (see kernels.ops.reset_launch_counts)
-launches = 0
+# the counter of this kernel's launches (see kernels.ops.launch_counts)
+LAUNCHES = "kernels.flash_attention.launches"
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
     ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
@@ -62,7 +63,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Any strides with a contiguous last dimension; the output takes q's
     order of dims (``out_like``)."""
-    global launches
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
@@ -89,5 +89,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              B, H, KVH, Sq, Skv, D, Dv, strides, int(causal),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check("flash_attention", err, "flash_attention")
-    launches += 1
+    obs.count(LAUNCHES)
     return o

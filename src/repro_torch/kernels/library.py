@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import attention_grad
 from repro_torch.kernels import chacha20 as _cc
 from repro_torch.kernels import decode_attention as _fd
@@ -71,8 +72,8 @@ def _fa_setup_context(ctx, inputs, output):
 
 def _fa_backward(ctx, do):
     q, k, v = ctx.saved_tensors
-    # a named range, so that a profile can tell the backward's share
-    with torch.profiler.record_function("flash_attention backward"):
+    # a named span, so that a profile can tell the backward's share
+    with obs.call("flash_attention backward"):
         dq, dk, dv = attention_grad.attention_grad(q, k, v, do,
                                                    causal=ctx.causal)
     return dq, dk, dv, None

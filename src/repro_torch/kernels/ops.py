@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import chacha20 as _cc
 from repro_torch.kernels import decode_attention as _fd
 from repro_torch.kernels import flash_attention as _fa
@@ -31,14 +32,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  lengths: torch.Tensor) -> torch.Tensor:
     """q [B,H,D], k/v [B,KVH,S,D], lengths [B] -> [B,H,D]."""
-    return library.flash_decode(q, k, v, lengths)
+    with obs.span("kernels.flash_decode"):
+        return library.flash_decode(q, k, v, lengths)
 
 
 def flash_decode_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor):
     """``flash_decode`` and its fp32 [B,H] log-sum-exp: (o, lse), -inf
     where a row has no valid position (whose o is 0)."""
-    return library.flash_decode_lse(q, k, v, lengths)
+    with obs.span("kernels.flash_decode"):
+        return library.flash_decode_lse(q, k, v, lengths)
 
 
 def chacha20_keystream(key: torch.Tensor, nonce: torch.Tensor, counter0: int,
@@ -63,13 +66,14 @@ def chacha20_encrypt(data_u32: torch.Tensor, key: torch.Tensor,
 
 
 def launch_counts() -> dict:
-    """Kernel launches per kernel since the last reset."""
-    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    """Kernel launches per kernel since the last reset: the wrappers'
+    counters ``kernels.<name>.launches`` (``repro_torch.obs``)."""
+    return {name: obs.counter(mod.LAUNCHES)
+            for name, mod in KERNEL_MODULES.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in KERNEL_MODULES.values():
-        mod.launches = 0
+    obs.reset(*(mod.LAUNCHES for mod in KERNEL_MODULES.values()))
 
 
 __all__ = ["chacha20_encrypt", "chacha20_keystream", "flash_attention",

@@ -48,7 +48,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.analysis import derived
 from repro_torch.configs import get_arch
 from repro_torch.models.api import build_model
@@ -75,9 +75,16 @@ class RealModelExecutor:
     which becomes the simulated service time. Per-request KV caches live
     here, keyed by request id — the handoff the engine charges between
     pools corresponds to moving one of these caches. Each request's
-    prompt and greedy tokens are kept in ``prompts`` and ``tokens``, and
-    ``done`` maps a request to the attempt whose last token this executor
-    produced.
+    prompt (``Request.prompt_len`` tokens drawn from ``rng``; with its
+    ``max_new`` it must fit ``max_seq``) and greedy tokens are kept in
+    ``prompts`` and ``tokens``, and ``done`` maps a request to the attempt
+    whose last token this executor produced. ``prompt_len`` is the length
+    the caller sized and warmed up for.
+
+    Each call is a span of ``repro_torch.obs``: ``executor.prefill`` (the
+    request's ``rid`` and the ``pool``) or ``executor.decode`` (``rids``,
+    ``pool``), with its closing synchronisation as the child
+    ``executor.sync``; on pool ``prefill`` a decode call is a stolen round.
 
     A retried request (drained off a crashed shard, or its response
     dropped) starts over with ``attempts`` one higher and its progress
@@ -127,45 +134,57 @@ class RealModelExecutor:
         if req.rid in self.state and \
                 self.attempt[req.rid] == req.attempts:
             return 0.0
-        for ex in self.peers:
-            ex.prune()
-        self.attempt[req.rid] = req.attempts
-        self.live[req.rid] = req
-        prompt = self.rng.integers(0, self.vocab, size=(1, self.prompt_len))
-        self.prompts[req.rid] = prompt[0]
-        toks = torch.as_tensor(prompt, dtype=torch.long, device=self.device)
-        cache = self.model.init_cache(self.params, {"tokens": toks}, 1,
-                                      self.max_seq)
-        _sync(self.device)
-        t0 = time.perf_counter()
-        logits, cache = self.model.prefill(self.params, {"tokens": toks},
-                                           cache)
-        tok = logits.argmax(-1)[:, None]
-        _sync(self.device)
-        dur_ms = (time.perf_counter() - t0) * 1e3
-        self.tokens[req.rid] = [tok]
-        self.state[req.rid] = (cache, tok, torch.full(
-            (1,), self.prompt_len, dtype=torch.int32, device=self.device))
+        P = req.prompt_len
+        if P + req.max_new > self.max_seq:
+            raise ValueError(f"request {req.rid}: prompt {P} + max_new "
+                             f"{req.max_new} exceeds max_seq {self.max_seq}")
+        with obs.call("executor.prefill", rid=req.rid, pool=pool):
+            for ex in self.peers:
+                ex.prune()
+            self.attempt[req.rid] = req.attempts
+            self.live[req.rid] = req
+            prompt = self.rng.integers(0, self.vocab, size=(1, P))
+            self.prompts[req.rid] = prompt[0]
+            toks = torch.as_tensor(prompt, dtype=torch.long,
+                                   device=self.device)
+            cache = self.model.init_cache(self.params, {"tokens": toks}, 1,
+                                          self.max_seq)
+            _sync(self.device)
+            t0 = time.perf_counter()
+            logits, cache = self.model.prefill(self.params,
+                                               {"tokens": toks}, cache)
+            tok = logits.argmax(-1)[:, None]
+            with obs.span("executor.sync"):
+                _sync(self.device)
+            dur_ms = (time.perf_counter() - t0) * 1e3
+            self.tokens[req.rid] = [tok]
+            self.state[req.rid] = (cache, tok, torch.full(
+                (1,), P, dtype=torch.int32, device=self.device))
         return dur_ms
 
     def decode(self, batch, pool: str, ndev: int) -> float:
-        _sync(self.device)
-        t0 = time.perf_counter()
-        for req in batch:
-            cache, tok, length = self.state[req.rid]
-            logits, cache = self.model.decode_step(self.params, cache, tok,
-                                                   length)
-            tok = logits.argmax(-1)[:, None]
-            self.tokens[req.rid].append(tok)
-            if req.generated + 1 >= req.max_new:
-                # request finishes with this token: drop its KV cache so
-                # executor memory scales with concurrency, not total served
-                del self.state[req.rid], self.live[req.rid]
-                self.done[req.rid] = req.attempts
-            else:
-                self.state[req.rid] = (cache, tok, length + 1)
-        _sync(self.device)
-        return (time.perf_counter() - t0) * 1e3
+        with obs.call("executor.decode", rids=[r.rid for r in batch],
+                      pool=pool):
+            _sync(self.device)
+            t0 = time.perf_counter()
+            for req in batch:
+                cache, tok, length = self.state[req.rid]
+                logits, cache = self.model.decode_step(self.params, cache,
+                                                       tok, length)
+                tok = logits.argmax(-1)[:, None]
+                self.tokens[req.rid].append(tok)
+                if req.generated + 1 >= req.max_new:
+                    # request finishes with this token: drop its KV cache
+                    # so executor memory scales with concurrency, not
+                    # total served
+                    del self.state[req.rid], self.live[req.rid]
+                    self.done[req.rid] = req.attempts
+                else:
+                    self.state[req.rid] = (cache, tok, length + 1)
+            with obs.span("executor.sync"):
+                _sync(self.device)
+            ms = (time.perf_counter() - t0) * 1e3
+        return ms
 
 
 def heavy_tags(arch: str, cfg, prompt: int, max_seq: int, batch: int = 1):

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.bridge import flatten
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.context import DistContext, no_dist
@@ -362,19 +363,30 @@ def lm_cache_specs(cfg: ArchConfig, dist: DistContext) -> dict:
     return {"k": P(None, dp, m, None, None), "v": P(None, dp, m, None, None)}
 
 
+# the MoE FFN's dispatch in each phase of serving
+_SERVE_DISPATCH = {"prefill": "auto", "decode": "replicated"}
+
+
 def _serve_layers(params, x, cfg: ArchConfig, cache, dist, on_use, attend,
-                  dispatch: str):
-    """The layers of a prefill or a decode step: ``attend(p, h, c_l, tp,
-    cache_seq) -> (y, cache)`` per layer, then the FFN; the final norm
-    and the logits of the last position, [B,V] fp32."""
+                  phase: str):
+    """The layers of a ``phase`` ("prefill" or "decode"): ``attend(p, h,
+    c_l, tp, cache_seq) -> (y, cache)`` per layer, then the FFN; the final
+    norm and the logits of the last position, [B,V] fp32. Each layer's
+    attention (norm, attend, residual) and FFN are the spans
+    ``model.attn`` and ``model.ffn`` (``repro_torch.obs``; attributes
+    ``layer`` and ``phase``)."""
     tp = tpm.plan(cfg, dist)
-    for p_l, c_l in zip(layer_slices(params["layers"], cfg.n_layers),
-                        layer_slices(cache, cfg.n_layers)):
+    dispatch = _SERVE_DISPATCH[phase]
+    for i, (p_l, c_l) in enumerate(zip(
+            layer_slices(params["layers"], cfg.n_layers),
+            layer_slices(cache, cfg.n_layers))):
         p_l = on_use.layer(p_l)
-        h = apply_norm(p_l["norm1"], x, cfg.norm)
-        y, _ = attend(p_l["attn"], h, c_l, tp, on_use.cache_seq)
-        x = x + _leave(tp, y, tp is not None and tp.heads)
-        x = _ffn_residual(p_l, x, cfg, dist, dispatch, tp)
+        with obs.span("model.attn", layer=i, phase=phase):
+            h = apply_norm(p_l["norm1"], x, cfg.norm)
+            y, _ = attend(p_l["attn"], h, c_l, tp, on_use.cache_seq)
+            x = x + _leave(tp, y, tp is not None and tp.heads)
+        with obs.span("model.ffn", layer=i, phase=phase):
+            x = _ffn_residual(p_l, x, cfg, dist, dispatch, tp)
     x = apply_norm(params["final_norm"], x[:, -1:, :], cfg.norm)
     return _logits(params, x, cfg, tp)[:, 0, :]
 
@@ -393,7 +405,7 @@ def lm_prefill(params, tokens, cfg: ArchConfig, cache,
     logits = _serve_layers(
         params, x, cfg, cache, dist, on_use,
         lambda p, h, c_l, tp, cs: prefill(p, h, cfg, c_l, positions, tp, cs),
-        "auto")
+        "prefill")
     return logits, cache
 
 
@@ -409,7 +421,7 @@ def lm_decode_step(params, cache, tokens, lengths, cfg: ArchConfig,
     logits = _serve_layers(
         params, x, cfg, cache, dist, on_use,
         lambda p, h, c_l, tp, cs: decode(p, h, cfg, c_l, lengths, tp, cs),
-        "replicated")
+        "decode")
     return logits, cache
 
 

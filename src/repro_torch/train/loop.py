@@ -5,9 +5,9 @@ or sharded over a mesh: the port of ``repro.train.loop``.
 ``make_train_step`` returns ``train_step(state, batch) -> (state,
 metrics)``, whose gradients come from ``torch.autograd.grad`` over those
 leaves and whose update is ``optimizer.adamw_update``. Its parts run in
-the profiler ranges ``forward``, ``backward`` and ``optimizer`` (free when
-no profiler runs), by which a profile of the step splits its device
-time.
+the spans ``forward``, ``backward`` and ``optimizer`` (``repro_torch.obs``:
+profiler ranges, free when no profiler runs), by which a profile of the
+step splits its device time.
 
 On a mesh, ``train_state_specs`` gives the reference's layout of the
 state (with ZeRO-1 the dp axes stripped from the parameters and added to
@@ -47,7 +47,7 @@ layers tensor-parallel over ``model`` (and sequence-parallel under
 ``seq_parallel``, ``models.tp``), and so does the encoder-decoder on its
 resting columns; the hybrid and RWKV6 (pure DP) compute their rows
 whole. Every collective call runs in the
-profiler range ``collectives`` (``dist.collectives``), inside ``forward``
+span ``collectives`` (``dist.collectives``), inside ``forward``
 and ``backward`` where the gathers, the regions and the MoE exchanges
 run.
 
@@ -62,8 +62,8 @@ import dataclasses
 import math
 
 import torch
-from torch.profiler import record_function
 
+from repro_torch import obs
 from repro_torch.bridge import flatten, unflatten
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.dist.collectives import psum
@@ -274,7 +274,7 @@ def make_train_step(model: Model, opt_cfg: OptConfig, grad_accum: int = 1,
 
     def micro_grads(leaves, micro):
         """(weighted loss, metrics, weight, grads) of one microbatch."""
-        with record_function("forward"):
+        with obs.call("forward"):
             params, on_use = _params_on_use(leaves, pl, use,
                                             model.per_layer_gathers)
             local = {k: _split_rows(v, specs.get(k), mesh)
@@ -287,7 +287,7 @@ def make_train_step(model: Model, opt_cfg: OptConfig, grad_accum: int = 1,
             loss, metrics = model.loss(params, batch, on_use) \
                 if model.per_layer_gathers else model.loss(params, batch)
             loss = loss * weight
-        with record_function("backward"):
+        with obs.call("backward"):
             grads = torch.autograd.grad(loss, list(leaves.values()))
         return loss.detach(), metrics, weight, dict(zip(leaves, grads))
 
@@ -325,7 +325,7 @@ def make_train_step(model: Model, opt_cfg: OptConfig, grad_accum: int = 1,
                 + [metrics[n].detach().float() * weight for n in names])
             if mesh is not None:
                 summed = psum(summed, mesh.group(mesh.axis_names))
-        with record_function("optimizer"):
+        with obs.call("optimizer"):
             params, opt, stats = adamw_update(
                 unflatten({k: shard(v.detach(), extra[k])
                            for k, v in leaves.items()}),
