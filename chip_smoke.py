@@ -63,8 +63,11 @@ Phases, each ending in one line:
      (1 + |lse|); empty rows 0), with the launch counters reset just
      before the shard calls and read just after (16), each way timed;
   4. serving: qwen1.5-0.5b at its published width and depth through the
-     engine (``repro_torch.launch.serve.main``), with the kernels' launch
-     counters reset just before and read just after; then one prefill and
+     engine (``repro_torch.launch.serve.main``), with the kernels'
+     executions on the card counted in a CUDA-activity profile of the run
+     (``executed_kernels``: a replayed CUDA graph's kernels count at each
+     replay) and the launch counters, which count what the host issued,
+     reset just before and printed beside them; then one prefill and
      a few decode steps of the served model under ``torch.profiler``, for
      the device's busy time, idle share and top kernels;
   5. the end-to-end check: at the published width in fp32, prefill and
@@ -100,8 +103,8 @@ Phases, each ending in one line:
      grok-1-314b (4 of 64 layers) and deepseek-v3-671b (2 of 61 layers)
      in bf16, one after the other, each served through
      ``repro_torch.launch.serve.run_engine`` (4 requests, 512-token
-     prompts, 16 new tokens, batch 2) with the launch counters reset just
-     before and read just after (``flash_attention`` must launch for
+     prompts, 16 new tokens, batch 2) with its kernels' executions
+     counted as in phase 4 (``flash_attention`` must launch for
      both, ``flash_decode`` for grok and never for deepseek, whose MLA
      decode is matrix products), its memory and a profiled prefill and
      decode steps printed; then each at 1 layer in fp32 through the
@@ -112,7 +115,7 @@ Phases, each ending in one line:
      dim 160) whole at their published widths in bf16, one after the
      other, each served through ``repro_torch.launch.serve.run_engine``
      (4 requests, 512-token prompts, 64 and 16 new tokens, batch 2) with
-     the launch counters reset just before and read just after (both
+     its kernels' executions counted as in phase 4 (both
      attention kernels must launch once a shared-block application or a
      layer, prefill and decode), TTFT/ITL, the weights' and the peak
      memory and a profiled prefill and decode steps printed; for the
@@ -233,6 +236,7 @@ card: without CUDA the script fails.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -389,6 +393,11 @@ KERNELS = {
         "source": "src/repro_torch/csrc/chacha20.cu",
         "replaces": "src/repro/kernels/chacha20.py:89"},
 }
+# the device functions each kernel runs, as a device trace names them
+KERNEL_FUNCTIONS = {
+    "flash_attention": ("flash_attention_kernel", "flash_attention_tc_kernel"),
+    "flash_decode": ("flash_decode_kernel",),
+    "chacha20": ("chacha20_kernel",)}
 # ChaCha20 keystream block 1 of RFC 7539 section 2.3.2 (key 00..1f,
 # nonce 000000090000004a00000000, counter 1), little-endian bytes
 RFC_BLOCK1 = bytes.fromhex(
@@ -1155,13 +1164,47 @@ def serve_argv(mode: str, settings: dict) -> list:
     return argv
 
 
+def kernel_function(name: str) -> str:
+    """``void ns::f<T, 4>(float*)`` -> ``f``."""
+    name = name.strip().replace("(anonymous namespace)::", "")
+    name = name.removeprefix("void ")
+    for stop in "<(":
+        name = name.split(stop, 1)[0]
+    return name.rsplit("::", 1)[-1].strip()
+
+
+@contextlib.contextmanager
+def executed_kernels(into: dict):
+    """Fills ``into`` with each kernel's executions on the current card
+    inside the block, counted by function name in a profile of the card's
+    activity: a replayed CUDA graph's kernels count at every replay,
+    where the launch counters count what the host issued (a graph's once,
+    at its capture). The launch counters are reset just before."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield
+        torch.cuda.synchronize()
+    seen = collections.Counter(
+        kernel_function(e.name())
+        for e in prof.profiler.kineto_results.events()
+        if str(e.device_type()).endswith("CUDA"))
+    into.update({name: sum(seen[f] for f in fns)
+                 for name, fns in KERNEL_FUNCTIONS.items()})
+
+
 def serve_phase():
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     argv = serve_argv("engine", SERVE)
-    ops.reset_launch_counts()
-    m, ex = serve.main(argv)
-    launches = ops.launch_counts()
+    launches = {}
+    with executed_kernels(launches):
+        m, ex = serve.main(argv)
+    say(f"  kernels executed {launches}, issued by the host "
+        f"{ops.launch_counts()}")
     n, N = SERVE["requests"], SERVE["max_new"]
     require(m.completed == n, f"{m.completed}/{n} requests completed")
     from repro_torch.configs import get_arch
@@ -1572,17 +1615,16 @@ def full_width_phase(runs):
     """Archs at their published widths in bf16, one after the other: for
     each ``(cfg, serve settings, end-to-end depth)`` of ``runs``, the
     model built and initialised on the card, served through
-    ``serve.run_engine`` with the launch counters reset just before and
-    read just after (``flash_attention`` once a layer, or once an
+    ``serve.run_engine`` with its kernels' executions on the card counted
+    (``executed_kernels``: ``flash_attention`` once a layer, or once an
     application of the hybrid's shared block, a request; ``flash_decode``
     as often a decode step, and never on MLA's absorbed decode), its
     memory and a profiled prefill and decode steps printed, MLA's decode
     held to ``mla_decode_naive`` and the hybrid's SSD chunk loop measured
     (``ssd_phase``), then freed; and the fp32 end-to-end check of phase 5
-    at the end-to-end depth. Returns each arch's serving launches."""
+    at the end-to-end depth. Returns each arch's serving executions."""
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models.api import build_model
 
@@ -1604,9 +1646,9 @@ def full_width_phase(runs):
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)")
         args = serve.build_parser().parse_args(
             ["--arch", arch] + serve_argv("engine", run)[2:])
-        ops.reset_launch_counts()
-        m, ex = serve.run_engine(args, cfg, model, params)
-        launches = ops.launch_counts()
+        launches = {}
+        with executed_kernels(launches):
+            m, ex = serve.run_engine(args, cfg, model, params)
         s = m.summary()
         n, N = run["requests"], run["max_new"]
         say(f"  {arch} serving: {m.completed}/{n} requests, ttft p50/p99 "

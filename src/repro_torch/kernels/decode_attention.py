@@ -44,6 +44,8 @@ _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
 # per device: int32 counters, one per (batch row, KV head), that the kernel
 # leaves at 0 after every call (grown, zeroed, when a call needs more)
 _COUNTERS: dict = {}
+# the buffers a call outgrew: a captured CUDA graph may still point at one
+_OUTGROWN: list = []
 
 
 def plan_splits(B: int, KVH: int, S: int, n_sm: int) -> tuple:
@@ -68,9 +70,12 @@ def sm_count(device_index: int) -> int:
 
 def _counters(device: torch.device, n: int) -> torch.Tensor:
     """At least ``n`` zeroed int32 counters on ``device``, kept across
-    calls: the kernel sets each back to 0 before it returns."""
+    calls: the kernel sets each back to 0 before it returns. An outgrown
+    buffer is kept, never freed, for the graphs that captured it."""
     buf = _COUNTERS.get(device)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _OUTGROWN.append(buf)
         buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
         _COUNTERS[device] = buf
     return buf

@@ -10,7 +10,9 @@ frequency levels come from the calibration artifact
 (``repro_torch/analysis/derived.json``); ``SpecializedPolicy`` confines the
 heavy phase (prefill, the AVX analogue) to the prefill pool of a two-pool
 ``Topology``. Prefill attention runs in the ``flash_attention`` kernel and
-decode attention in ``flash_decode``.
+decode attention in ``flash_decode``. On the card, a GQA decoder without
+MoE decodes each request's step as the replay of a CUDA graph captured
+once a cache slot (``RealModelExecutor``, ``SlotPool``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
       --requests 8 --prompt 512 --max-new 64 --batch 4
@@ -42,7 +44,9 @@ calibration (``python -m repro_torch.analysis.calibrate``) writes
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import heapq
 import time
 
 import numpy as np
@@ -66,6 +70,82 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _current(device: torch.device):
+    """``device`` made the current card for a block, or nothing off the
+    card: the hand-written kernels and a CUDA graph launch on the current
+    card, which a cluster's shards on other cards are not."""
+    return torch.cuda.device(device) if device.type == "cuda" \
+        else contextlib.nullcontext()
+
+
+# always-on counters of the decode graphs (``repro_torch.obs``)
+CAPTURES = "executor.decode_graph.captures"
+REPLAYS = "executor.decode_graph.replays"
+
+
+def graph_decode(model) -> bool:
+    """Whether an executor of ``model`` replays a captured CUDA graph of
+    each decode step: on a CUDA device, off a mesh, for a family whose
+    decode step is shown capture-safe (``Model.graph_decode``)."""
+    return (model.graph_decode and model.device.type == "cuda"
+            and not model.dist.active)
+
+
+@dataclasses.dataclass
+class Slot:
+    """A request's place on the graph path, reused by the requests that
+    follow it: a cache at ``max_seq``, the step's token and length, and
+    the graph of one decode step over them. Positions a former request
+    left beyond ``length`` need no zeroing: the step writes its own K/V
+    at ``length`` and attends below ``length + 1``."""
+    cache: dict
+    tok: torch.Tensor           # [1, 1] int64: the token the step reads
+    length: torch.Tensor        # [1] int32: the positions before it
+    graph: object = None        # captured on the slot's first step
+
+
+class SlotPool:
+    """The cache slots of an executor: ``take`` gives the lowest free
+    slot, or grows the pool by one (``make()``), and ``give`` puts one
+    back, so the pool holds as many slots as requests were ever live at
+    once. Its graphs share one memory pool: their replays run one after
+    another on one stream. They are captured on a stream of ``device``,
+    the card that holds the slots (``torch.cuda.graph``'s own side stream
+    is made once, on whichever card was current first), with that card
+    current."""
+
+    def __init__(self, make, device: torch.device):
+        self.make = make
+        self.device = device
+        self.slots: list[Slot] = []
+        self.free: list[int] = []        # a heap of free indices
+        self.mempool = None
+        self.stream = None               # the captures' stream
+
+    def take(self) -> int:
+        if self.free:
+            return heapq.heappop(self.free)
+        self.slots.append(self.make())
+        return len(self.slots) - 1
+
+    def give(self, i: int) -> None:
+        heapq.heappush(self.free, i)
+
+    def capture(self, step):
+        """The CUDA graph of ``step()``, captured into the slots' memory
+        pool. Capturing runs nothing on the card, and records no span:
+        the kernel wrappers still count what they issue."""
+        graph = torch.cuda.CUDAGraph()
+        with _current(self.device), obs.paused():
+            if self.mempool is None:
+                self.mempool = torch.cuda.graph_pool_handle()
+                self.stream = torch.cuda.Stream(self.device)
+            with torch.cuda.graph(graph, pool=self.mempool,
+                                  stream=self.stream):
+                step()
+        return graph
+
+
 class RealModelExecutor:
     """Engine executor that runs real prefill/decode steps.
 
@@ -85,6 +165,25 @@ class RealModelExecutor:
     request's ``rid`` and the ``pool``) or ``executor.decode`` (``rids``,
     ``pool``), with its closing synchronisation as the child
     ``executor.sync``; on pool ``prefill`` a decode call is a stolen round.
+    Inside a decode call each request's step is the span
+    ``executor.step`` (``rid``, ``slot``, ``mode``). A call runs with
+    the model's card current (``_current``), so a shard on another card
+    than the current one launches its kernels and graphs on its own.
+
+    Where ``graph_decode(model)`` holds, a request's decode step (the
+    model's ``decode_step`` at B = 1, then its ``argmax``) is the replay
+    of a CUDA graph, one a cache slot (``SlotPool``): prefill takes the
+    lowest free slot and fills its cache in place, the slot's first decode
+    step captures the graph (mode ``capture``) and replays it, and later
+    steps replay it (mode ``replay``). A finished or pruned request gives
+    its slot back; ``state`` points at the slot's tensors, which each
+    replay updates in place. ``CAPTURES`` and ``REPLAYS`` count the two;
+    the kernels' launch counters count what the host issued, so a
+    replay's kernels count once, at their capture. Elsewhere each step
+    runs eagerly on a cache of the request's own (mode ``eager``), not on
+    a slot: the hybrid's Mamba2 prefill and RWKV6's start from the state
+    they are given, so a reused slot would carry a former request's, and
+    RWKV6 returns its states anew instead of writing them in place.
 
     A retried request (drained off a crashed shard, or its response
     dropped) starts over with ``attempts`` one higher and its progress
@@ -113,6 +212,9 @@ class RealModelExecutor:
         self.live = {}           # rid -> the Request ``state`` belongs to
         self.peers = peers if peers is not None else []
         self.peers.append(self)
+        self.slots = SlotPool(self._new_slot, self.device) \
+            if graph_decode(model) else None
+        self.slot_of = {}        # rid -> its slot in ``slots``
 
     def generated(self, rid: int) -> list:
         """The greedy tokens request ``rid`` produced, as ints."""
@@ -124,7 +226,19 @@ class RealModelExecutor:
         would otherwise stay until the request came back here."""
         for rid in [rid for rid, req in self.live.items()
                     if req.attempts != self.attempt[rid]]:
-            del self.state[rid], self.live[rid]
+            self._drop(rid)
+
+    def _drop(self, rid: int) -> None:
+        """Forget request ``rid``'s state; its slot goes back."""
+        del self.state[rid], self.live[rid]
+        if self.slots is not None:
+            self.slots.give(self.slot_of.pop(rid))
+
+    def _new_slot(self) -> Slot:
+        tok = torch.zeros((1, 1), dtype=torch.long, device=self.device)
+        return Slot(self.model.init_cache(self.params, {"tokens": tok}, 1,
+                                          self.max_seq), tok,
+                    torch.zeros((1,), dtype=torch.int32, device=self.device))
 
     def prefill(self, req: Request, chunk: int, pool: str,
                 ndev: int) -> float:
@@ -138,7 +252,8 @@ class RealModelExecutor:
         if P + req.max_new > self.max_seq:
             raise ValueError(f"request {req.rid}: prompt {P} + max_new "
                              f"{req.max_new} exceeds max_seq {self.max_seq}")
-        with obs.call("executor.prefill", rid=req.rid, pool=pool):
+        with obs.call("executor.prefill", rid=req.rid, pool=pool), \
+                _current(self.device):
             for ex in self.peers:
                 ex.prune()
             self.attempt[req.rid] = req.attempts
@@ -147,8 +262,13 @@ class RealModelExecutor:
             self.prompts[req.rid] = prompt[0]
             toks = torch.as_tensor(prompt, dtype=torch.long,
                                    device=self.device)
-            cache = self.model.init_cache(self.params, {"tokens": toks}, 1,
-                                          self.max_seq)
+            if self.slots is None:
+                cache = self.model.init_cache(self.params, {"tokens": toks},
+                                              1, self.max_seq)
+            else:
+                self.slot_of[req.rid] = self.slots.take()
+                slot = self.slots.slots[self.slot_of[req.rid]]
+                cache = slot.cache
             _sync(self.device)
             t0 = time.perf_counter()
             logits, cache = self.model.prefill(self.params,
@@ -158,28 +278,59 @@ class RealModelExecutor:
                 _sync(self.device)
             dur_ms = (time.perf_counter() - t0) * 1e3
             self.tokens[req.rid] = [tok]
-            self.state[req.rid] = (cache, tok, torch.full(
-                (1,), P, dtype=torch.int32, device=self.device))
+            if self.slots is None:
+                self.state[req.rid] = (cache, tok, torch.full(
+                    (1,), P, dtype=torch.int32, device=self.device))
+            else:
+                slot.tok.copy_(tok)
+                slot.length.fill_(P)
+                self.state[req.rid] = (slot.cache, slot.tok, slot.length)
         return dur_ms
+
+    def _graph_step(self, rid: int) -> torch.Tensor:
+        """Request ``rid``'s decode step as the replay of its slot's
+        graph, captured first where the slot has none: a copy of the
+        step's token."""
+        i = self.slot_of[rid]
+        slot = self.slots.slots[i]
+        mode = "replay" if slot.graph is not None else "capture"
+        with obs.span("executor.step", rid=rid, slot=i, mode=mode):
+            if slot.graph is None:
+                def step():
+                    logits, _ = self.model.decode_step(
+                        self.params, slot.cache, slot.tok, slot.length)
+                    torch.argmax(logits, -1, keepdim=True, out=slot.tok)
+                    slot.length.add_(1)
+
+                slot.graph = self.slots.capture(step)
+                obs.count(CAPTURES)
+            slot.graph.replay()
+            obs.count(REPLAYS)
+            return slot.tok.clone()
 
     def decode(self, batch, pool: str, ndev: int) -> float:
         with obs.call("executor.decode", rids=[r.rid for r in batch],
-                      pool=pool):
+                      pool=pool), _current(self.device):
             _sync(self.device)
             t0 = time.perf_counter()
             for req in batch:
-                cache, tok, length = self.state[req.rid]
-                logits, cache = self.model.decode_step(self.params, cache,
-                                                       tok, length)
-                tok = logits.argmax(-1)[:, None]
+                if self.slots is not None:
+                    tok = self._graph_step(req.rid)
+                else:
+                    cache, tok, length = self.state[req.rid]
+                    with obs.span("executor.step", rid=req.rid, slot=None,
+                                  mode="eager"):
+                        logits, cache = self.model.decode_step(
+                            self.params, cache, tok, length)
+                        tok = logits.argmax(-1)[:, None]
                 self.tokens[req.rid].append(tok)
                 if req.generated + 1 >= req.max_new:
                     # request finishes with this token: drop its KV cache
-                    # so executor memory scales with concurrency, not
-                    # total served
-                    del self.state[req.rid], self.live[req.rid]
+                    # (or give its slot back) so executor memory scales
+                    # with concurrency, not total served
+                    self._drop(req.rid)
                     self.done[req.rid] = req.attempts
-                else:
+                elif self.slots is None:
                     self.state[req.rid] = (cache, tok, length + 1)
             with obs.span("executor.sync"):
                 _sync(self.device)
@@ -229,13 +380,15 @@ def warm_up(model, params, prompt: int, max_seq: int) -> float:
     kernels' build and first launches land in no measured request.
     Returns the seconds it took."""
     t0 = time.perf_counter()
-    toks = torch.zeros((1, prompt), dtype=torch.long, device=model.device)
-    cache = model.init_cache(params, {"tokens": toks}, 1, max_seq)
-    logits, cache = model.prefill(params, {"tokens": toks}, cache)
-    model.decode_step(params, cache, logits.argmax(-1)[:, None],
-                      torch.full((1,), prompt, dtype=torch.int32,
-                                 device=model.device))
-    _sync(model.device)
+    with _current(model.device):
+        toks = torch.zeros((1, prompt), dtype=torch.long,
+                           device=model.device)
+        cache = model.init_cache(params, {"tokens": toks}, 1, max_seq)
+        logits, cache = model.prefill(params, {"tokens": toks}, cache)
+        model.decode_step(params, cache, logits.argmax(-1)[:, None],
+                          torch.full((1,), prompt, dtype=torch.int32,
+                                     device=model.device))
+        _sync(model.device)
     return time.perf_counter() - t0
 
 

@@ -39,6 +39,13 @@ every family's ``prefill`` and ``decode_step`` take it, with whether the
 attention caches rest sharded over ``model`` on their sequence (RWKV6
 has none). ``plan()`` is this rank's plan of ``models.tp`` that the
 forward computes on (None off a ``model`` axis and for RWKV6).
+
+``graph_decode`` says whether a family's decode step is shown safe to
+capture as a CUDA graph and replay (``launch.serve.RealModelExecutor``
+does so on the card, off a mesh): the GQA decoders without MoE served
+through ``transformer.lm_decode_step``, whose every op runs on the card
+from shapes alone. MLA, MoE routing, the hybrid's Mamba2 state, RWKV6 and
+the encoder-decoder are not, and decode eagerly.
 """
 from __future__ import annotations
 
@@ -73,6 +80,7 @@ class Model:
     local_leaves: dict = field(default_factory=dict)  # leaf -> spec on use
     per_layer_gathers: bool = False  # a layer at a time; loss takes on_use
     plan: Callable = lambda: None    # () -> this rank's tp plan
+    graph_decode: bool = False       # decode_step capture-safe (see above)
 
     def init(self, gen: torch.Generator) -> dict:
         """Random parameters on the model's device, from ``gen``."""
@@ -179,7 +187,8 @@ def _build_lm(cfg: ArchConfig, device: torch.device,
                  cache_specs=lambda: transformer.lm_cache_specs(cfg, dist),
                  dist=dist,
                  local_leaves=transformer.lm_local_leaves(cfg, dist),
-                 per_layer_gathers=True, plan=lambda: tpm.plan(cfg, dist))
+                 per_layer_gathers=True, plan=lambda: tpm.plan(cfg, dist),
+                 graph_decode=cfg.attention == "gqa" and cfg.moe is None)
 
 
 def _build_hybrid(cfg: ArchConfig, device: torch.device,

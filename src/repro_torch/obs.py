@@ -18,6 +18,7 @@ executor call, a part of a train step, a collective, a backward): it
 reads the profiler's state into a flag, which the spans opened inside it
 test, and puts the flag back when it closes. So an idle span costs one
 test, and a span opened outside every call records nothing.
+``paused()`` clears that flag for a block.
 
 On its first record after a ``take()`` the recorder reads the Unix clock
 and ``perf_counter_ns`` together: ``Records.offset_ns``, their difference,
@@ -169,6 +170,24 @@ def call(name: str, **attrs):
     return _Call(name, attrs)
 
 
+class _Paused:
+    """Inside it no span records (a CUDA graph's capture, which issues a
+    step's work without running it); counters still count."""
+    __slots__ = ("was",)
+
+    def __enter__(self):
+        self.was, RECORDER.on = RECORDER.on, False
+
+    def __exit__(self, *exc):
+        RECORDER.on = self.was
+        return False
+
+
+def paused():
+    """``with paused(): ...``: no span records inside."""
+    return _Paused()
+
+
 def count(name: str, n: int = 1) -> None:
     c = RECORDER.counters
     c[name] = c.get(name, 0) + n
@@ -190,4 +209,4 @@ def take() -> Records:
 
 
 __all__ = ["CAPACITY", "RECORDER", "Records", "Recorder", "Span", "call",
-           "count", "counter", "reset", "span", "take"]
+           "count", "counter", "paused", "reset", "span", "take"]

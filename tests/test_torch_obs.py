@@ -105,12 +105,18 @@ def test_spans_nest_and_count_what_the_engine_counts(served, arch,
             p = by_id[s.parent]
             assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
     calls = [s for s in rec.spans if s.name.startswith("executor.")
-             and s.name != "executor.sync"]
+             and s.name not in ("executor.sync", "executor.step")]
     assert all(s.parent is None for s in calls)
     for c in calls:
         mine = kids.get(c.id, [])
         phase = c.name.split(".")[1]
         n_req = len(c.attrs["rids"]) if phase == "decode" else 1
+        # a decode call's layers run inside each request's executor.step
+        steps = [s for s in mine if s.name == "executor.step"]
+        assert [s.attrs["rid"] for s in steps] == (
+            c.attrs["rids"] if phase == "decode" else [])
+        assert all(s.attrs["mode"] == "eager" for s in steps)
+        mine = mine + [k for s in steps for k in kids.get(s.id, [])]
         for name in ("model.attn", "model.ffn"):
             layers = sorted(s.attrs["layer"] for s in mine if s.name == name
                             and s.attrs["phase"] == phase)
@@ -118,11 +124,12 @@ def test_spans_nest_and_count_what_the_engine_counts(served, arch,
         assert [s.name for s in mine if s.name == "executor.sync"] == \
             ["executor.sync"]
         assert c.attrs["pool"] in ("prefill", "decode")
-    # executor.decode > model.attn > kernels.flash_decode
+    # executor.decode > executor.step > model.attn > kernels.flash_decode
     fd = [s for s in rec.spans if s.name == "kernels.flash_decode"]
     assert fd and all(by_id[s.parent].name == "model.attn" and
-                      by_id[by_id[s.parent].parent].name == "executor.decode"
-                      for s in fd)
+                      by_id[by_id[s.parent].parent].name == "executor.step"
+                      and by_id[by_id[by_id[s.parent].parent].parent].name
+                      == "executor.decode" for s in fd)
     prefills = [c for c in calls if c.name == "executor.prefill"]
     assert sorted(c.attrs["rid"] for c in prefills) == list(range(8))
     stolen = [c for c in calls if c.name == "executor.decode"
@@ -215,6 +222,22 @@ def test_spans_record_inside_a_call_under_a_profiler():
     assert spans["leaf"].parent == spans["inner"].id
     assert spans["inner"].parent == spans["outer"].id
     assert spans["outer"].parent is None and spans["outer"].attrs == {"k": 1}
+
+
+def test_no_span_records_while_paused_and_counters_still_count():
+    obs.take()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with obs.call("outer"):
+            with obs.paused():
+                assert not obs.RECORDER.on
+                with obs.span("hidden"):
+                    obs.count("n")
+            assert obs.RECORDER.on
+            with obs.span("leaf"):
+                obs.count("n")
+    rec = obs.take()
+    assert sorted(s.name for s in rec.spans) == ["leaf", "outer"]
+    assert rec.counters == {"n": 2}
 
 
 def test_the_recorder_keeps_the_newest_spans():
