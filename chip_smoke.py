@@ -28,7 +28,9 @@ Phases, each ending in one line:
      KVH20 D64: cross-attention at Sq 64, Skv 1500 and the encoder at
      S1500, both not causal, and ``flash_decode`` over all 1500 frames,
      timed in fp32 and bf16; the decoder's causal prefill and its
-     self-attention decode),
+     self-attention decode), at the published Zamba2-2.7B's shared block
+     (B1 H32 KVH32 D160, scores scaled by (160 / 2)^-1/2 as given to both
+     kernels: S512 causal prefill, decode over a 704-position cache),
      with one PyTorch
      library call's time (``scaled_dot_product_attention``, a yardstick
      the port never calls). ``chacha20`` bit-exact (0 mismatched words) on
@@ -366,6 +368,11 @@ TOL = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
 # flash_decode's log-sum-exp against its plain version's, fp32 both (the
 # kernel sums in base 2 from prescaled scores): x (1 + |lse|)
 LSE_TOL = 1e-4
+# the published Zamba2-2.7B's shared block (portbench/configs/zamba2-2.7b.
+# json): heads of 160 over [x; embedding], scores scaled by (160 / 2)^-1/2,
+# a 512-token prompt and up to 192 new tokens
+ZAMBA2_PUBLISHED = dict(H=32, D=160, prompt=512, cache=704,
+                        scale=(160 / 2) ** -0.5)
 # phase 3 (b): the sequence-parallel decode's caches cut into the 16
 # sequence shards of the (16, 16) mesh's model axis, in one process:
 # qwen1.5-0.5b's and whisper-large-v3's self-attention over decode_32k's
@@ -600,8 +607,8 @@ def check_kernel(name, case, label, dtype_name, timed):
     if name == "flash_decode":
         # the same launch with its log-sum-exp: the output unchanged, the
         # lse against the plain version's
-        o, lse = kern(*args, with_lse=True)
-        _, want_lse = ref.decode_attention_lse_ref(*args)
+        o, lse = kern(*args, with_lse=True, **kwargs)
+        _, want_lse = ref.decode_attention_lse_ref(*args, **kwargs)
         torch.cuda.synchronize()
         fin = torch.isfinite(want_lse)
         lse_err = (lse - want_lse)[fin].abs().max().item() if fin.any() \
@@ -625,7 +632,7 @@ def check_kernel(name, case, label, dtype_name, timed):
                    ("library_ms", lambda a: library_call(name, a, kwargs))]
         if name == "flash_decode":
             timings.append(("lse_ms", lambda a: lambda: kern(
-                *a, with_lse=True)))
+                *a, with_lse=True, **kwargs)))
         for key, make in timings:
             t = device_ms([make(a) for a in copies])
             res[key] = t["ms"]
@@ -1102,6 +1109,32 @@ def whisper_shape_checks(dname, dtype, gen):
     return {"flash_attention": fa, "flash_decode": fd}
 
 
+def scaled_checks(gen):
+    """Both attention kernels with a score scale of their caller's, at the
+    published Zamba2-2.7B's shared block, in fp32 and bf16: the causal
+    prefill of the prompt and decode at the first, a middle and the last
+    step's length, each against the plain version at the same scale."""
+    import torch
+    z = ZAMBA2_PUBLISHED
+    H, D, P, S = z["H"], z["D"], z["prompt"], z["cache"]
+    checks = {"flash_attention": [], "flash_decode": []}
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        args, kw, nb, fl = prefill_case(1, H, H, P, D, dtype, True, gen)
+        checks["flash_attention"].append(check_kernel(
+            "flash_attention", (args, dict(kw, scale=z["scale"]), nb, fl),
+            f"zamba2 published B1 H{H} KVH{H} S{P} D{D} causal scale "
+            f"{z['scale']:.6f}", dname, False))
+        for length in (P + 1, P + (S - P) // 2, S):
+            args, kw, nb, fl = decode_case(1, H, H, S, D, dtype, [length],
+                                           gen)
+            checks["flash_decode"].append(check_kernel(
+                "flash_decode", (args, dict(kw, scale=z["scale"]), nb, fl),
+                f"zamba2 published B1 H{H} KVH{H} S{S} D{D} len{length} "
+                f"scale {z['scale']:.6f}", dname, False))
+    return checks
+
+
 def kernel_phase():
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1150,6 +1183,8 @@ def kernel_phase():
                                                    timed).items():
                 results[name] += checks
     for name, checks in calibration_shape_checks(gen).items():
+        results[name] += checks
+    for name, checks in scaled_checks(gen).items():
         results[name] += checks
     bad = [(n, r["shape"], r["dtype"]) for n, rs in results.items()
            for r in rs if not r["ok"]]

@@ -7,7 +7,7 @@ single ``CONFIG: ArchConfig`` with the exact published hyperparameters.
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 
@@ -40,6 +40,9 @@ class SSMConfig:
     conv_kernel: int = 4
     n_groups: int = 1
     chunk: int = 128               # SSD chunk length
+    # the gated output RMSNorm's epsilon (port only, left out of the repr,
+    # which the registry's configs share with the reference's)
+    norm_eps: float = field(default=1e-6, repr=False)
 
 
 @dataclass(frozen=True)
@@ -57,8 +60,34 @@ class EncDecConfig:
 
 @dataclass(frozen=True)
 class HybridConfig:
-    """Zamba2-style: Mamba2 backbone + shared (weight-tied) attention block."""
+    """Zamba2-style: Mamba2 backbone + shared (weight-tied) attention block.
+
+    The defaults are the reference's block: one shared block after every
+    ``shared_attn_every`` backbone layers, reading the residual stream and
+    adding to it. ``layer_ids`` given selects the published Zamba2 block
+    (``published``): before each listed backbone layer the shared block
+    ``k mod n_blocks`` (k counting the applications) reads
+    ``[x; embedding]``, scales its scores by (head_dim / 2)^-1/2, its MLP
+    adds the application's own adapter of rank ``adapter_rank``, and its
+    output enters that layer's input through the application's own linear
+    map."""
     shared_attn_every: int = 6     # apply the shared block every N backbone layers
+    # the published block's fields (port only, left out of the repr, which
+    # the registry's configs share with the reference's)
+    layer_ids: tuple = field(default=(), repr=False)    # the hybrid layers
+    n_blocks: int = field(default=1, repr=False)        # alternating blocks
+    adapter_rank: int = field(default=0, repr=False)    # MLP adapter's rank
+
+    def __post_init__(self):
+        object.__setattr__(self, "layer_ids", tuple(self.layer_ids))
+        if not self.layer_ids and (self.n_blocks != 1 or self.adapter_rank):
+            raise ValueError("HybridConfig: n_blocks and adapter_rank belong "
+                             "to the published block, which layer_ids "
+                             "selects")
+
+    @property
+    def published(self) -> bool:
+        return bool(self.layer_ids)
 
 
 @dataclass(frozen=True)

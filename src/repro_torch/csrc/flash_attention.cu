@@ -269,9 +269,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int KVH, int Sq, int Skv, const long long* st,
-                   int causal, cudaStream_t stream) {
+                   int causal, double sc, cudaStream_t stream) {
   constexpr size_t smem = Smem<DQK, DV>::BYTES;
-  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(DQK)));
+  const float scale = sc > 0 ? static_cast<float>(sc)
+      : static_cast<float>(1.0 / std::sqrt(static_cast<double>(DQK)));
   auto kernel = flash_attention_kernel<T, DQK, DV>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -657,10 +658,10 @@ flash_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 template <int DQK, int DV, int NW>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int KVH, int Sq, int Skv, const long long* st,
-                   int causal, cudaStream_t stream) {
+                   int causal, double sc, cudaStream_t stream) {
   constexpr int smem = Smem<DQK, DV, NW>::BYTES;
-  const float scale_log2 =
-      static_cast<float>(LOG2E / std::sqrt(static_cast<double>(DQK)));
+  const float scale_log2 = sc > 0 ? static_cast<float>(LOG2E * sc)
+      : static_cast<float>(LOG2E / std::sqrt(static_cast<double>(DQK)));
   auto kernel = flash_attention_tc_kernel<DQK, DV, NW>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -681,13 +682,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 template <int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int KVH, int Sq, int Skv, const long long* st,
-                   int causal, cudaStream_t stream) {
+                   int causal, double sc, cudaStream_t stream) {
   if constexpr (DQK == 192)
-    return launch<DQK, DV, 1>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream);
+    return launch<DQK, DV, 1>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, sc, stream);
   else
     return (H / KVH) % 2 == 0
-               ? launch<DQK, DV, 2>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream)
-               : launch<DQK, DV, 1>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream);
+               ? launch<DQK, DV, 2>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, sc, stream)
+               : launch<DQK, DV, 1>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, sc, stream);
 }
 
 }  // namespace tc
@@ -696,28 +697,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 template <typename T, int DQK, int DV>
 cudaError_t launch_dims(const void* q, const void* k, const void* v, void* o,
                         int B, int H, int KVH, int Sq, int Skv, const long long* st,
-                        int causal, cudaStream_t stream) {
+                        int causal, double sc, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    return tc::launch<DQK, DV>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream);
+    return tc::launch<DQK, DV>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, sc, stream);
   else
-    return launch<float, DQK, DV>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream);
+    return launch<float, DQK, DV>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, sc, stream);
 }
 
 template <typename T>
 cudaError_t dispatch_d(int DQK, int DV, const void* q, const void* k,
                        const void* v, void* o, int B, int H, int KVH, int Sq,
-                       int Skv, const long long* st, int causal,
+                       int Skv, const long long* st, int causal, double sc,
                        cudaStream_t stream) {
   if (DQK == 192 && DV == 128)
-    return launch_dims<T, 192, 128>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream);
+    return launch_dims<T, 192, 128>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, sc, stream);
   if (DQK != DV) return cudaErrorInvalidValue;
   switch (DQK) {
-    case 16: return launch_dims<T, 16, 16>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream);
-    case 32: return launch_dims<T, 32, 32>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream);
-    case 64: return launch_dims<T, 64, 64>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream);
-    case 80: return launch_dims<T, 80, 80>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream);
-    case 128: return launch_dims<T, 128, 128>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream);
-    case 160: return launch_dims<T, 160, 160>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, stream);
+    case 16: return launch_dims<T, 16, 16>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, sc, stream);
+    case 32: return launch_dims<T, 32, 32>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, sc, stream);
+    case 64: return launch_dims<T, 64, 64>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, sc, stream);
+    case 80: return launch_dims<T, 80, 80>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, sc, stream);
+    case 128: return launch_dims<T, 128, 128>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, sc, stream);
+    case 160: return launch_dims<T, 160, 160>(q, k, v, o, B, H, KVH, Sq, Skv, st, causal, sc, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -732,7 +733,8 @@ int smem_dims(int dtype, bool two) {
 }  // namespace
 
 // q [B,H,Sq,DQK], k [B,KVH,Skv,DQK], v [B,KVH,Skv,DV], o [B,H,Sq,DV]; scores
-// are scaled by 1/sqrt(DQK); causal only where Sq = Skv. (DQK, DV) is (D, D)
+// are scaled by `scale`, or by 1/sqrt(DQK) where it is not above 0; causal
+// only where Sq = Skv. (DQK, DV) is (D, D)
 // for D in {16, 32, 64, 80, 128, 160} or (192, 128). Strides (in elements)
 // are (batch, head, sequence) for q, k, v, o in that order: 12 values.
 // Returns the launch's cudaGetLastError().
@@ -740,17 +742,17 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, int dtype, int B, int H, int KVH,
                                    int Sq, int Skv, int DQK, int DV,
                                    const long long* strides, int causal,
-                                   void* stream) {
+                                   double scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || KVH <= 0 || H % KVH != 0 ||
       (causal && Sq != Skv))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_F32)
     return dispatch_d<float>(DQK, DV, q, k, v, o, B, H, KVH, Sq, Skv, strides,
-                             causal, st);
+                             causal, scale, st);
   if (dtype == DTYPE_BF16)
     return dispatch_d<__nv_bfloat16>(DQK, DV, q, k, v, o, B, H, KVH, Sq, Skv,
-                                     strides, causal, st);
+                                     strides, causal, scale, st);
   return cudaErrorInvalidValue;
 }
 

@@ -398,9 +398,10 @@ template <typename T, int D, int GT>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* lengths, void* o, float* lse, float* part,
                    int* counters, int B, int KVH, int G, int S, int chunk,
-                   int splits, const long long* st, cudaStream_t stream) {
-  const float scale_log2 =
-      static_cast<float>(LOG2E / std::sqrt(static_cast<double>(D)));
+                   int splits, const long long* st, double sc,
+                   cudaStream_t stream) {
+  const float scale_log2 = sc > 0 ? static_cast<float>(LOG2E * sc)
+      : static_cast<float>(LOG2E / std::sqrt(static_cast<double>(D)));
   flash_decode_kernel<T, D, GT><<<dim3(splits, KVH, B), THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), lengths, static_cast<T*>(o), lse, part, G, S,
@@ -414,12 +415,12 @@ template <typename T, int D>
 cudaError_t dispatch_g(int G, const void* q, const void* k, const void* v,
                        const int* len, void* o, float* lse, float* part,
                        int* cnt, int B, int KVH, int S, int chunk, int splits,
-                       const long long* st, cudaStream_t s) {
-  if (G <= 1) return launch<T, D, 1>(q, k, v, len, o, lse, part, cnt, B, KVH, G, S, chunk, splits, st, s);
-  if (G <= 2) return launch<T, D, 2>(q, k, v, len, o, lse, part, cnt, B, KVH, G, S, chunk, splits, st, s);
-  if (G <= 4) return launch<T, D, 4>(q, k, v, len, o, lse, part, cnt, B, KVH, G, S, chunk, splits, st, s);
-  if (G <= 8) return launch<T, D, 8>(q, k, v, len, o, lse, part, cnt, B, KVH, G, S, chunk, splits, st, s);
-  if (G <= 16) return launch<T, D, 16>(q, k, v, len, o, lse, part, cnt, B, KVH, G, S, chunk, splits, st, s);
+                       const long long* st, double sc, cudaStream_t s) {
+  if (G <= 1) return launch<T, D, 1>(q, k, v, len, o, lse, part, cnt, B, KVH, G, S, chunk, splits, st, sc, s);
+  if (G <= 2) return launch<T, D, 2>(q, k, v, len, o, lse, part, cnt, B, KVH, G, S, chunk, splits, st, sc, s);
+  if (G <= 4) return launch<T, D, 4>(q, k, v, len, o, lse, part, cnt, B, KVH, G, S, chunk, splits, st, sc, s);
+  if (G <= 8) return launch<T, D, 8>(q, k, v, len, o, lse, part, cnt, B, KVH, G, S, chunk, splits, st, sc, s);
+  if (G <= 16) return launch<T, D, 16>(q, k, v, len, o, lse, part, cnt, B, KVH, G, S, chunk, splits, st, sc, s);
   return cudaErrorInvalidValue;
 }
 
@@ -428,14 +429,14 @@ cudaError_t dispatch_d(int D, int G, const void* q, const void* k,
                        const void* v, const int* len, void* o, float* lse,
                        float* part, int* cnt, int B, int KVH, int S, int chunk,
                        int splits,
-                       const long long* st, cudaStream_t s) {
+                       const long long* st, double sc, cudaStream_t s) {
   switch (D) {
-    case 16: return dispatch_g<T, 16>(G, q, k, v, len, o, lse, part, cnt, B, KVH, S, chunk, splits, st, s);
-    case 32: return dispatch_g<T, 32>(G, q, k, v, len, o, lse, part, cnt, B, KVH, S, chunk, splits, st, s);
-    case 64: return dispatch_g<T, 64>(G, q, k, v, len, o, lse, part, cnt, B, KVH, S, chunk, splits, st, s);
-    case 80: return dispatch_g<T, 80>(G, q, k, v, len, o, lse, part, cnt, B, KVH, S, chunk, splits, st, s);
-    case 128: return dispatch_g<T, 128>(G, q, k, v, len, o, lse, part, cnt, B, KVH, S, chunk, splits, st, s);
-    case 160: return dispatch_g<T, 160>(G, q, k, v, len, o, lse, part, cnt, B, KVH, S, chunk, splits, st, s);
+    case 16: return dispatch_g<T, 16>(G, q, k, v, len, o, lse, part, cnt, B, KVH, S, chunk, splits, st, sc, s);
+    case 32: return dispatch_g<T, 32>(G, q, k, v, len, o, lse, part, cnt, B, KVH, S, chunk, splits, st, sc, s);
+    case 64: return dispatch_g<T, 64>(G, q, k, v, len, o, lse, part, cnt, B, KVH, S, chunk, splits, st, sc, s);
+    case 80: return dispatch_g<T, 80>(G, q, k, v, len, o, lse, part, cnt, B, KVH, S, chunk, splits, st, sc, s);
+    case 128: return dispatch_g<T, 128>(G, q, k, v, len, o, lse, part, cnt, B, KVH, S, chunk, splits, st, sc, s);
+    case 160: return dispatch_g<T, 160>(G, q, k, v, len, o, lse, part, cnt, B, KVH, S, chunk, splits, st, sc, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -443,7 +444,7 @@ cudaError_t dispatch_d(int D, int G, const void* q, const void* k,
 }  // namespace
 
 // q [B,H,D], k/v [B,KVH,S,D], lengths [B] int32, o [B,H,D]; scores are
-// scaled by 1/sqrt(D). The cache axis is cut into `splits` chunks of `chunk`
+// scaled by `scale`, or by 1/sqrt(D) where it is not above 0. The cache axis is cut into `splits` chunks of `chunk`
 // positions (splits * chunk >= S). With splits > 1, `part` is fp32 scratch of
 // B * H * splits * (D + 2) floats and `counters` B * KVH int32 that are 0 on
 // entry and 0 again on return (the kernel resets them, so one zeroed buffer
@@ -457,7 +458,8 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
                                 void* part,
                                 void* counters, int dtype, int B, int H,
                                 int KVH, int S, int D, int chunk, int splits,
-                                const long long* strides, void* stream) {
+                                const long long* strides, double scale,
+                                void* stream) {
   if (B <= 0 || KVH <= 0 || H % KVH != 0 || splits <= 0 || chunk <= 0 ||
       (long long)splits * chunk < S ||
       (splits > 1 && (part == nullptr || counters == nullptr)))
@@ -469,8 +471,8 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v,
   int* cnt = static_cast<int*>(counters);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_F32)
-    return dispatch_d<float>(D, G, q, k, v, len, o, ls, p, cnt, B, KVH, S, chunk, splits, strides, st);
+    return dispatch_d<float>(D, G, q, k, v, len, o, ls, p, cnt, B, KVH, S, chunk, splits, strides, scale, st);
   if (dtype == DTYPE_BF16)
-    return dispatch_d<__nv_bfloat16>(D, G, q, k, v, len, o, ls, p, cnt, B, KVH, S, chunk, splits, strides, st);
+    return dispatch_d<__nv_bfloat16>(D, G, q, k, v, len, o, ls, p, cnt, B, KVH, S, chunk, splits, strides, scale, st);
   return cudaErrorInvalidValue;
 }

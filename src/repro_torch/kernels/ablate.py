@@ -134,17 +134,21 @@ def device_ms(fn, iters: int = 50, reps: int = 5) -> float:
 def caller(lib, text: str):
     """``fn(q, k, v, o, B, H, KVH, S, D, st, stream)``: a causal bf16 call
     of ``lib``'s ``flash_attention_fwd``, whose C signature is read from
-    its source ``text``: one sequence length, or ``Sq`` and ``Skv``."""
+    its source ``text``: one sequence length, or ``Sq`` and ``Skv``; and
+    a score scale (0: 1/sqrt(D)) where the source takes one."""
     two = "int Sq, int Skv, int DQK" in text
+    scaled = "double scale, void* stream" in text
     fn = lib.flash_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * (8 if two else 7) \
-        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_int] \
+        + [ctypes.c_double] * scaled + [ctypes.c_void_p]
     code = build.DTYPE_CODES["bfloat16"]
 
     def call(q, k, v, o, B, H, KVH, S, D, st, stream):
         lengths = (S, S) if two else (S,)
         return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  code, B, H, KVH, *lengths, D, D, st, 1, stream)
+                  code, B, H, KVH, *lengths, D, D, st, 1,
+                  *([0.0] if scaled else []), stream)
     return call
 
 

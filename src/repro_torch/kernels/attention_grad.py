@@ -39,15 +39,17 @@ from repro_torch.kernels.ref import NEG_INF, math_dtype
 BLOCK = 128
 
 
-def attention_grad(q, k, v, do, *, causal: bool, block: int = BLOCK):
+def attention_grad(q, k, v, do, *, causal: bool, block: int = BLOCK,
+                   scale=None):
     """q [B,H,Sq,D], k [B,KVH,Skv,D], v [B,KVH,Skv,Dv] and the output's
     gradient do [B,H,Sq,Dv] -> (dq, dk, dv) in q's, k's and v's dtypes,
     for the attention of ``ref.attention_ref`` (scores scaled by
-    1/sqrt(D), as the forward kernel scales them). Any strides."""
+    ``scale``, or by 1/sqrt(D) where it is None, as the forward kernel
+    scales them). Any strides."""
     B, H, Sq, D = q.shape
     KVH, Skv, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // KVH
-    scale = 1.0 / math.sqrt(D)
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
     acc = math_dtype(q)
     qf = q.to(acc).reshape(B, KVH, G, Sq, D)
     dof = do.to(acc).reshape(B, KVH, G, Sq, Dv)

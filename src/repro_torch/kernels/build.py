@@ -127,6 +127,16 @@ HEAD_DIMS = (16, 32, 64, 80, 128, 160)
 ATTENTION_DIMS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128),)
 
 
+def scale_arg(scale: float | None) -> float:
+    """The attention launchers' score scale: ``scale``, or 0 where the
+    caller gives none, which each kernel reads as 1/sqrt(D)."""
+    if scale is None:
+        return 0.0
+    if not scale > 0:
+        raise ValueError(f"attention: score scale {scale} is not above 0")
+    return float(scale)
+
+
 def check_operands(what: str, **tensors) -> int:
     """Validate a kernel's tensor operands: CUDA tensors on one device, of
     one dtype the kernel takes, with a contiguous last dimension and

@@ -39,7 +39,7 @@ MIN_CHUNK = 64          # ... and at least this many positions
 LAUNCHES_PER_CALL = 1
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
-    ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+    ctypes.POINTER(ctypes.c_longlong), ctypes.c_double, ctypes.c_void_p]
 
 # per device: int32 counters, one per (batch row, KV head), that the kernel
 # leaves at 0 after every call (grown, zeroed, when a call needs more)
@@ -82,9 +82,11 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 lengths: torch.Tensor, with_lse: bool = False):
+                 lengths: torch.Tensor, with_lse: bool = False,
+                 scale: float | None = None):
     """q [B,H,D], k/v [B,KVH,S,D], lengths [B] -> [B,H,D] in ``q.dtype``,
-    with the scores scaled by 1/sqrt(D) as in the TPU kernel; with
+    with the scores scaled by ``scale``, or by 1/sqrt(D) as in the TPU
+    kernel where it is None; with
     ``with_lse`` also the fp32 [B,H] log-sum-exp of each row's scaled
     scores over its valid positions (-inf where it has none).
 
@@ -127,7 +129,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              o.data_ptr(), lse.data_ptr() if with_lse else None,
              part.data_ptr() if splits > 1 else None,
              counters.data_ptr() if splits > 1 else None, code, B, H, KVH,
-             S, D, chunk, splits, strides,
+             S, D, chunk, splits, strides, build.scale_arg(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check("flash_decode", err, "flash_decode")
     obs.count(LAUNCHES)

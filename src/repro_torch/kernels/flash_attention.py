@@ -25,7 +25,8 @@ from repro_torch.kernels import build
 LAUNCHES = "kernels.flash_attention.launches"
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_void_p]
+    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_double,
+    ctypes.c_void_p]
 
 
 def smem_bytes(dtype: str, D: int, Dv: int, G: int) -> int:
@@ -55,11 +56,12 @@ def check_causal(Sq: int, Skv: int, causal: bool) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True,
+                    scale: float | None = None) -> torch.Tensor:
     """q [B,H,Sq,D], k [B,KVH,Skv,D], v [B,KVH,Skv,Dv] -> [B,H,Sq,Dv] in
-    ``q.dtype``, with the scores scaled by 1/sqrt(D) as in the TPU kernel;
-    (D, Dv) one of ``build.ATTENTION_DIMS``; ``causal`` only where
-    ``Sq == Skv``.
+    ``q.dtype``, with the scores scaled by ``scale``, or by 1/sqrt(D) as in
+    the TPU kernel where it is None; (D, Dv) one of
+    ``build.ATTENTION_DIMS``; ``causal`` only where ``Sq == Skv``.
 
     Any strides with a contiguous last dimension; the output takes q's
     order of dims (``out_like``)."""
@@ -87,6 +89,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fn = build.bind("flash_attention", "flash_attention_fwd", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), code,
              B, H, KVH, Sq, Skv, D, Dv, strides, int(causal),
+             build.scale_arg(scale),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check("flash_attention", err, "flash_attention")
     obs.count(LAUNCHES)

@@ -27,6 +27,8 @@ grid.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch import obs
@@ -43,19 +45,20 @@ from repro_torch.kernels import ref
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
                          device_types="cuda")
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool) -> torch.Tensor:
+                    causal: bool,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """q [B,H,Sq,D], k [B,KVH,Skv,D], v [B,KVH,Skv,Dv] -> [B,H,Sq,Dv]: the
-    CUDA kernel."""
-    return _fa.flash_attention(q, k, v, causal=causal)
+    CUDA kernel; scores scaled by ``scale``, 1/sqrt(D) where None."""
+    return _fa.flash_attention(q, k, v, causal=causal, scale=scale)
 
 
 @flash_attention.register_kernel("cpu")
-def _(q, k, v, causal):
-    return ref.attention_ref(q, k, v, causal=causal)
+def _(q, k, v, causal, scale=None):
+    return ref.attention_ref(q, k, v, causal=causal, scale=scale)
 
 
 @flash_attention.register_fake
-def _(q, k, v, causal):
+def _(q, k, v, causal, scale=None):
     # the layout of the kernel that the device would run: the plain
     # version's contiguous [B,H,Sq,Dv] on the CPU, the CUDA kernel's q
     # layout elsewhere (the meta device stands for the card)
@@ -65,9 +68,9 @@ def _(q, k, v, causal):
 
 
 def _fa_setup_context(ctx, inputs, output):
-    q, k, v, causal = inputs
+    q, k, v, causal, scale = inputs
     ctx.save_for_backward(q, k, v)
-    ctx.causal = causal
+    ctx.causal, ctx.scale = causal, scale
 
 
 def _fa_backward(ctx, do):
@@ -75,8 +78,9 @@ def _fa_backward(ctx, do):
     # a named span, so that a profile can tell the backward's share
     with obs.call("flash_attention backward"):
         dq, dk, dv = attention_grad.attention_grad(q, k, v, do,
-                                                   causal=ctx.causal)
-    return dq, dk, dv, None
+                                                   causal=ctx.causal,
+                                                   scale=ctx.scale)
+    return dq, dk, dv, None, None
 
 
 flash_attention.register_autograd(_fa_backward,
@@ -89,38 +93,40 @@ flash_attention.register_autograd(_fa_backward,
 @torch.library.custom_op("repro_torch::flash_decode", mutates_args=(),
                          device_types="cuda")
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 lengths: torch.Tensor) -> torch.Tensor:
-    """q [B,H,D], k/v [B,KVH,S,D], lengths [B] -> [B,H,D]: the CUDA kernel."""
-    return _fd.flash_decode(q, k, v, lengths)
+                 lengths: torch.Tensor,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """q [B,H,D], k/v [B,KVH,S,D], lengths [B] -> [B,H,D]: the CUDA kernel;
+    scores scaled by ``scale``, 1/sqrt(D) where None."""
+    return _fd.flash_decode(q, k, v, lengths, scale=scale)
 
 
 @flash_decode.register_kernel("cpu")
-def _(q, k, v, lengths):
-    return ref.decode_attention_ref(q, k, v, lengths)
+def _(q, k, v, lengths, scale=None):
+    return ref.decode_attention_ref(q, k, v, lengths, scale=scale)
 
 
 @flash_decode.register_fake
-def _(q, k, v, lengths):
+def _(q, k, v, lengths, scale=None):
     return q.new_empty(q.shape)
 
 
 @torch.library.custom_op("repro_torch::flash_decode_lse", mutates_args=(),
                          device_types="cuda")
 def flash_decode_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor) -> tuple[torch.Tensor,
-                                                     torch.Tensor]:
+                     lengths: torch.Tensor, scale: Optional[float] = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """``flash_decode`` that also returns the fp32 [B,H] log-sum-exp of
     each row's scaled scores: the CUDA kernel, in the same launch."""
-    return _fd.flash_decode(q, k, v, lengths, with_lse=True)
+    return _fd.flash_decode(q, k, v, lengths, with_lse=True, scale=scale)
 
 
 @flash_decode_lse.register_kernel("cpu")
-def _(q, k, v, lengths):
-    return ref.decode_attention_lse_ref(q, k, v, lengths)
+def _(q, k, v, lengths, scale=None):
+    return ref.decode_attention_lse_ref(q, k, v, lengths, scale=scale)
 
 
 @flash_decode_lse.register_fake
-def _(q, k, v, lengths):
+def _(q, k, v, lengths, scale=None):
     return q.new_empty(q.shape), q.new_empty(q.shape[:2],
                                              dtype=torch.float32)
 
@@ -156,7 +162,7 @@ def _(key, nonce, counter0, n_blocks):
 CHACHA20_OPS_PER_BLOCK = 10 * 8 * (4 + 4 + 4 * 3) + 16
 
 
-def _attention_flops(q, k, v, causal):
+def _attention_flops(q, k, v, causal, scale=None):
     """The full QK^T and PV products, 2 B H Sq Skv (D + Dv), causal or
     not: an upper bound, since the kernel skips the tiles above the causal
     diagonal. The reference's static count charges the same (its ``cond``
@@ -166,7 +172,7 @@ def _attention_flops(q, k, v, causal):
     return f, f
 
 
-def _decode_flops(q, k, v, lengths):
+def _decode_flops(q, k, v, lengths, scale=None):
     """4 B H S D over the cache's S: ``lengths`` is a value a static pass
     cannot see, and the reference also costs over S."""
     B, H, D = q.shape

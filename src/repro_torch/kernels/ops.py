@@ -22,26 +22,30 @@ KERNEL_MODULES = {"flash_attention": _fa, "flash_decode": _fd,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True,
+                    scale: float | None = None) -> torch.Tensor:
     """q [B,H,Sq,D], k [B,KVH,Skv,D], v [B,KVH,Skv,Dv] -> [B,H,Sq,Dv];
-    ``causal`` only where Sq == Skv, on every device."""
+    ``causal`` only where Sq == Skv, on every device; scores scaled by
+    ``scale``, or by 1/sqrt(D) where it is None."""
     _fa.check_causal(q.shape[2], k.shape[2], causal)
-    return library.flash_attention(q, k, v, causal)
+    return library.flash_attention(q, k, v, causal, scale)
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 lengths: torch.Tensor) -> torch.Tensor:
-    """q [B,H,D], k/v [B,KVH,S,D], lengths [B] -> [B,H,D]."""
+                 lengths: torch.Tensor,
+                 scale: float | None = None) -> torch.Tensor:
+    """q [B,H,D], k/v [B,KVH,S,D], lengths [B] -> [B,H,D]; scores scaled
+    by ``scale``, or by 1/sqrt(D) where it is None."""
     with obs.span("kernels.flash_decode"):
-        return library.flash_decode(q, k, v, lengths)
+        return library.flash_decode(q, k, v, lengths, scale)
 
 
 def flash_decode_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor):
+                     lengths: torch.Tensor, scale: float | None = None):
     """``flash_decode`` and its fp32 [B,H] log-sum-exp: (o, lse), -inf
     where a row has no valid position (whose o is 0)."""
     with obs.span("kernels.flash_decode"):
-        return library.flash_decode_lse(q, k, v, lengths)
+        return library.flash_decode_lse(q, k, v, lengths, scale)
 
 
 def chacha20_keystream(key: torch.Tensor, nonce: torch.Tensor, counter0: int,

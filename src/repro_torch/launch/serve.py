@@ -181,9 +181,10 @@ class RealModelExecutor:
     the kernels' launch counters count what the host issued, so a
     replay's kernels count once, at their capture. Elsewhere each step
     runs eagerly on a cache of the request's own (mode ``eager``), not on
-    a slot: the hybrid's Mamba2 prefill and RWKV6's start from the state
-    they are given, so a reused slot would carry a former request's, and
-    RWKV6 returns its states anew instead of writing them in place.
+    a slot: the repo's hybrid block's Mamba2 prefill and RWKV6's start
+    from the state they are given, so a reused slot would carry a former
+    request's, and RWKV6 returns its states anew instead of writing them
+    in place.
 
     A retried request (drained off a crashed shard, or its response
     dropped) starts over with ``attempts`` one higher and its progress

@@ -44,8 +44,12 @@ forward computes on (None off a ``model`` axis and for RWKV6).
 capture as a CUDA graph and replay (``launch.serve.RealModelExecutor``
 does so on the card, off a mesh): the GQA decoders without MoE served
 through ``transformer.lm_decode_step``, whose every op runs on the card
-from shapes alone. MLA, MoE routing, the hybrid's Mamba2 state, RWKV6 and
-the encoder-decoder are not, and decode eagerly.
+from shapes alone, and the published Zamba2 block (``HybridConfig.
+layer_ids``), whose decode step writes its states in place and whose
+prefill starts each request's Mamba2 recurrence from zero, so that a
+reused cache carries nothing of a former request. MLA, MoE routing, the
+repo's hybrid block (its prefill starts from the state it is given),
+RWKV6 and the encoder-decoder are not, and decode eagerly.
 """
 from __future__ import annotations
 
@@ -223,7 +227,8 @@ def _build_hybrid(cfg: ArchConfig, device: torch.device,
                  param_specs=lambda: _fs_specs(
                      hybrid.hybrid_init(None, cfg, "meta"), _fsdp_axis(dist)),
                  cache_specs=cache_specs, dist=dist, pure_dp=True,
-                 plan=lambda: tpm.plan(cfg, dist))
+                 plan=lambda: tpm.plan(cfg, dist),
+                 graph_decode=cfg.hybrid.published)
 
 
 def _build_rwkv(cfg: ArchConfig, device: torch.device,

@@ -106,15 +106,15 @@ def norm_rope(p, q, k, cfg: ArchConfig, positions):
             apply_rope(k, positions, cfg.rope_theta))
 
 
-def attention(q, k, v, causal: bool = True):
+def attention(q, k, v, causal: bool = True, scale=None):
     """[B,Sq,H,Dqk] q, [B,Skv,KVH,Dqk] k and [B,Skv,KVH,Dv] v ->
     [B,Sq,H*Dv] through the ``flash_attention`` dispatcher (transpose
-    views, no copies), scores scaled by 1/sqrt(Dqk); ``causal`` where
-    Sq == Skv (self-attention), not causal for the encoder and for
-    cross-attention."""
+    views, no copies), scores scaled by ``scale``, or by 1/sqrt(Dqk) where
+    it is None; ``causal`` where Sq == Skv (self-attention), not causal
+    for the encoder and for cross-attention."""
     B, S = q.shape[:2]
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=causal)
+                            v.transpose(1, 2), causal=causal, scale=scale)
     return o.transpose(1, 2).reshape(B, S, -1)
 
 
@@ -234,20 +234,22 @@ def _merge_over(o, lse, tp):
 
 
 def decode_attend(q, k, v, cache, lengths, tp=None,
-                  cache_seq: bool = False):
+                  cache_seq: bool = False, scale=None):
     """One step's attention over the cache ``{"k", "v"}`` [B,Smax,KVH,hd]:
     every head's q [B,H,hd] and new k/v [B,KVH,hd] -> [B,H,hd]. Writes
     the new K/V at ``lengths`` (in place), then attends over ``lengths +
     1`` positions through ``flash_decode`` on a ``[B,KVH,Smax,hd]``
     permute view; where ``cache_seq`` the cache is this rank's block of
     the sequence, attended through ``flash_decode_lse`` and merged over
-    the axis."""
+    the axis. Scores are scaled by ``scale``, or by 1/sqrt(hd) where it is
+    None."""
     local = _write_step(cache, {"k": k, "v": v}, lengths, tp, cache_seq)
     kc, vc = (cache[n].permute(0, 2, 1, 3) for n in ("k", "v"))
     if cache_seq:
-        return _merge_over(*ops.flash_decode_lse(q, kc, vc, local),
+        return _merge_over(*ops.flash_decode_lse(q, kc, vc, local,
+                                                 scale=scale),
                            tp).to(q.dtype)
-    return ops.flash_decode(q, kc, vc, local)
+    return ops.flash_decode(q, kc, vc, local, scale=scale)
 
 
 def gqa_decode(p, x, cfg: ArchConfig, cache, lengths, tp=None,

@@ -236,8 +236,11 @@ def dense(p: dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     return y
 
 
+# "gelu" is the tanh form, as the reference's ``jax.nn.gelu``; "gelu_exact"
+# the erf form (the published Zamba2's MLP)
 ACTS = {"silu": F.silu,
-        "gelu": lambda x: F.gelu(x, approximate="tanh")}
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
+        "gelu_exact": F.gelu}
 
 
 def init_mlp(d: int, d_ff: int, glu: bool) -> dict:

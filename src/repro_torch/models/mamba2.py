@@ -22,6 +22,11 @@ the reference are held as they are:
 ``mamba2_prefill`` projects its input twice, once for the conv window and
 once inside the forward, as the reference does: the op stream, and so
 calibration and the lint, then count what the reference counts.
+
+The chunked scan runs in the span ``mamba2.ssd_scan`` (``chunks``,
+``chunk_len``). The gated norm's
+epsilon is ``SSMConfig.norm_eps``: the reference's 1e-6, or the published
+Zamba2's 1e-5.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import Draw, dt, rmsnorm
 
@@ -157,10 +163,12 @@ def mamba2_forward(p, x, cfg: ArchConfig, h0=None):
     if h0 is None:
         h0 = torch.zeros((Bsz, nh, s.head_dim, s.d_state),
                          dtype=torch.float32, device=x.device)
-    y, h_fin = _ssd_chunk_scan(xh, dtv, A, Bm, Cm, h0, s.chunk)
+    Q = _chunk_len(S, s.chunk)
+    with obs.span("mamba2.ssd_scan", chunks=S // Q, chunk_len=Q):
+        y, h_fin = _ssd_chunk_scan(xh, dtv, A, Bm, Cm, h0, s.chunk)
     y = y + p["D"][None, None, :, None] * xh
     y = y.reshape(Bsz, S, d_in) * F.silu(gz.float())
-    y = rmsnorm(y.to(cdt), p["out_norm"])
+    y = rmsnorm(y.to(cdt), p["out_norm"], s.norm_eps)
     return y @ p["out_proj"].to(cdt), h_fin
 
 
@@ -214,5 +222,5 @@ def mamba2_decode(p, x, cfg: ArchConfig, state):
         (xh * dtv[..., None])[..., :, None] @ Bm[:, :, None, :]
     y = torch.einsum("bhn,bhpn->bhp", Cm, h) + p["D"][None, :, None] * xh
     y = y.reshape(Bsz, 1, d_in) * F.silu(gz.float())
-    y = rmsnorm(y.to(cdt), p["out_norm"])
+    y = rmsnorm(y.to(cdt), p["out_norm"], s.norm_eps)
     return y @ p["out_proj"].to(cdt), {"conv": window[:, 1:, :], "h": h}

@@ -195,11 +195,14 @@ def test_the_path_calls_the_attention_kernels(setup, monkeypatch):
     seen = []
     fa, fd = ops.flash_attention, ops.flash_decode
 
-    def rec_fa(q, k, v, *, causal=True):
+    # whisper's attention takes the kernels' own 1/sqrt(D) (no scale)
+    def rec_fa(q, k, v, *, causal=True, scale=None):
+        assert scale is None
         seen.append(("fa", q.shape[2], k.shape[2], causal))
         return fa(q, k, v, causal=causal)
 
-    def rec_fd(q, k, v, lengths):
+    def rec_fd(q, k, v, lengths, scale=None):
+        assert scale is None
         seen.append(("fd", k.shape[2], tuple(lengths.tolist())))
         return fd(q, k, v, lengths)
 
