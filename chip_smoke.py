@@ -63,7 +63,19 @@ Phases, each ending in one line:
      the partials merged in fp32 by ``models.attention.merge_partials``,
      against one whole-cache call and the plain version (3e-2; lse 1e-4 x
      (1 + |lse|); empty rows 0), with the launch counters reset just
-     before the shard calls and read just after (16), each way timed;
+     before the shard calls and read just after (16), each way timed.
+     (c) ``mamba2_step``, the port's own kernel of a Mamba2 layer's decode
+     step (no TPU kernel: the reference computes it as plain ops), against
+     its plain version at the published Zamba2-2.7B's layer (80 heads of
+     64, d_state 64, a 4-tap conv), B 1 and 4, fp32 and bf16 (the window
+     bit for bit, the fp32 state within 1e-5, y within 2e-5 / 2e-2); 64
+     steps in place against 64 plain ones; one call captured in a CUDA
+     graph and replayed on new inputs against eager calls, bit for bit;
+     its device time at B 1 in bf16 (rotated over copies beyond the L2)
+     against its bytes bound and the plain version's; and the published
+     block (``portbench/configs/zamba2-2.7b.json``, 54 layers, bf16) at
+     full width: one eager decode step issues it 54 times, two launches a
+     call;
   4. serving: qwen1.5-0.5b at its published width and depth through the
      engine (``repro_torch.launch.serve.main``), with the kernels'
      executions on the card counted in a CUDA-activity profile of the run
@@ -400,11 +412,20 @@ KERNELS = {
         "source": "src/repro_torch/csrc/chacha20.cu",
         "replaces": "src/repro/kernels/chacha20.py:89"},
 }
+# the port's own kernels, with no TPU kernel behind them: built in phase 2,
+# checked in phase 3 (c)
+OWN_KERNELS = {"mamba2_step": "src/repro_torch/csrc/mamba2_step.cu"}
 # the device functions each kernel runs, as a device trace names them
 KERNEL_FUNCTIONS = {
     "flash_attention": ("flash_attention_kernel", "flash_attention_tc_kernel"),
     "flash_decode": ("flash_decode_kernel",),
-    "chacha20": ("chacha20_kernel",)}
+    "chacha20": ("chacha20_kernel",),
+    "mamba2_step": ("mamba2_step_kernel", "mamba2_norm_kernel")}
+# phase 3 (c): the published Zamba2-2.7B's Mamba2 layer, and the kernel's
+# tolerances against its plain version (y; the fp32 state within 1e-5)
+MAMBA2_PUBLISHED = dict(nh=80, hd=64, N=64, G=1, K=4)
+MAMBA2_EPS = 1e-5
+MAMBA2_TOL = {"float32": 2e-5, "bfloat16": 2e-2, "state": 1e-5}
 # ChaCha20 keystream block 1 of RFC 7539 section 2.3.2 (key 00..1f,
 # nonce 000000090000004a00000000, counter 1), little-endian bytes
 RFC_BLOCK1 = bytes.fromhex(
@@ -1135,6 +1156,200 @@ def scaled_checks(gen):
     return checks
 
 
+def mamba2_operands(B, dtype, gen, nh, hd, N, G, K):
+    """A Mamba2 step's operands on the card: zx and the weights in
+    ``dtype``, the window, the state, dt_bias, A_log and D in fp32."""
+    import torch
+    d_in, cc = nh * hd, nh * hd + 2 * G * N
+
+    def rnd(*shape, scale=1.0, dt=torch.float32):
+        return (scale * torch.randn(*shape, generator=gen, device="cuda")
+                ).to(dt)
+
+    p = {"conv_w": rnd(K, cc, scale=0.3, dt=dtype),
+         "conv_b": rnd(cc, scale=0.1, dt=dtype),
+         "dt_bias": rnd(nh, scale=0.5) - 2.0,
+         "A_log": torch.log(torch.linspace(1.0, 16.0, nh, device="cuda")),
+         "D": rnd(nh), "out_norm": (rnd(d_in, scale=0.1) + 1).to(dtype)}
+    zx = rnd(B, 2 * d_in + 2 * G * N + nh, dt=dtype)
+    return zx, rnd(B, K - 1, cc, scale=0.5), rnd(B, nh, hd, N, scale=0.3), p
+
+
+def mamba2_check(B, dname, dtype, gen, timed=False):
+    """The kernel against its plain version on copies of one window and
+    state; optionally timed. Returns a result dict."""
+    import torch
+    from repro_torch.kernels import mamba2_step as m2
+    from repro_torch.kernels import ref
+    z, eps = MAMBA2_PUBLISHED, MAMBA2_EPS
+    zx, conv, h, p = mamba2_operands(B, dtype, gen, **z)
+    kc, kh, pc, ph = conv.clone(), h.clone(), conv.clone(), h.clone()
+    got = m2.mamba2_step(zx, kc, kh, *p.values(), eps)
+    want = ref.mamba2_step_ref(zx, pc, ph, *p.values(), eps)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    state_err = (kh - ph).abs().max().item()
+    tol = MAMBA2_TOL[dname]
+    win_eq = torch.equal(kc, pc)
+    ok = bool(((got.float() - want.float()).abs()
+               <= tol + tol * want.float().abs()).all()) \
+        and state_err <= MAMBA2_TOL["state"] and win_eq \
+        and bool(torch.isfinite(got.float()).all())
+    label = (f"zamba2 published B{B} nh{z['nh']} hd{z['hd']} N{z['N']} "
+             f"G{z['G']} K{z['K']}")
+    res = {"shape": label, "dtype": dname, "max_abs_err": err,
+           "state_max_abs_err": state_err, "tol": tol, "ok": ok}
+    if timed:
+        # every byte the step moves: the state read and written, the window
+        # read and written, zx, the conv weights, the small parameters, and
+        # y written and read back by the norm
+        item, witem = zx.element_size(), p["conv_w"].element_size()
+        nbytes = (2 * h.numel() * 4 + 2 * conv.numel() * 4
+                  + zx.numel() * item
+                  + sum(t.numel() * t.element_size() for t in p.values())
+                  + 3 * got.numel() * item)
+        copies = [(zx, kc, kh)] + [
+            (zx.clone(), kc.clone(), kh.clone())
+            for _ in range(math.ceil(ROTATE_BYTES / nbytes) - 1)]
+        t = device_ms([lambda a=a: m2.mamba2_step(*a, *p.values(), eps)
+                       for a in copies])
+        tp = device_ms([lambda a=a: ref.mamba2_step_ref(*a, *p.values(),
+                                                        eps)
+                        for a in copies[:4]], iters=20, reps=3)
+        m = machine()
+        res.update(ms=t["ms"], plain_ms=tp["ms"], library_ms=None,
+                   bound_ms=nbytes / m.hbm_bytes_per_s * 1e3,
+                   bound_by="bytes", bytes=nbytes, copies=len(copies),
+                   host_hidden={"ms": t["hidden"], "plain_ms": tp["hidden"]},
+                   weights_bytes_per_elem=witem)
+    say(f"  mamba2_step {label} {dname}: max_abs_err={err:.3g} (tol {tol}),"
+        f" state max_abs_err={state_err:.3g} (tol {MAMBA2_TOL['state']}),"
+        f" window equal {win_eq}"
+        + (f" ms={res['ms']:.4f} plain_ms={res['plain_ms']:.4f} "
+           f"library_ms=none bound_ms={res['bound_ms']:.4f} (bytes: "
+           f"{res['bytes']} at {machine().hbm_bytes_per_s:.4g} B/s); "
+           f"device-only over {res['copies']} input copies, host hidden "
+           f"(kernel/plain): {t['hidden']}/{tp['hidden']}" if timed else "")
+        + ("" if ok else "  MISMATCH"))
+    return res
+
+
+def mamba2_steps_check(gen, steps: int = 64, B: int = 4):
+    """``steps`` kernel calls on one window and state, in place, against
+    as many plain ones, bf16: every y within the tolerance, the final
+    state within 1e-5 and the window bit for bit."""
+    import torch
+    from repro_torch.kernels import mamba2_step as m2
+    from repro_torch.kernels import ref
+    z = MAMBA2_PUBLISHED
+    zx, conv, h, p = mamba2_operands(B, torch.bfloat16, gen, **z)
+    kc, kh, pc, ph = conv.clone(), h.clone(), conv.clone(), h.clone()
+    err = 0.0
+    for _ in range(steps):
+        zx = torch.randn(zx.shape, generator=gen, device="cuda").to(zx.dtype)
+        got = m2.mamba2_step(zx, kc, kh, *p.values(), MAMBA2_EPS)
+        want = ref.mamba2_step_ref(zx, pc, ph, *p.values(), MAMBA2_EPS)
+        err = max(err, ((got.float() - want.float()).abs()
+                        / (1 + want.float().abs())).max().item())
+    state_err = (kh - ph).abs().max().item()
+    ok = err <= MAMBA2_TOL["bfloat16"] and state_err <= MAMBA2_TOL["state"] \
+        and torch.equal(kc, pc)
+    say(f"  mamba2_step {steps} steps in place, B{B} bf16: worst y "
+        f"|diff| / (1 + |y|) {err:.3g}, final state max_abs_err "
+        f"{state_err:.3g}, window equal {torch.equal(kc, pc)}"
+        + ("" if ok else "  MISMATCH"))
+    return {"shape": f"{steps} steps in place B{B}", "dtype": "bfloat16",
+            "max_abs_err": err, "state_max_abs_err": state_err, "ok": ok}
+
+
+def mamba2_graph_check(gen, replays: int = 8):
+    """One call captured in a CUDA graph, replayed on ``replays`` new
+    inputs, against eager calls: outputs, window and state bit for bit."""
+    import torch
+    from repro_torch.kernels import mamba2_step as m2
+    z, eps = MAMBA2_PUBLISHED, MAMBA2_EPS
+    zx, conv, h, p = mamba2_operands(1, torch.bfloat16, gen, **z)
+    zxs = [torch.randn(zx.shape, generator=gen, device="cuda").to(zx.dtype)
+           for _ in range(replays)]
+    ec, eh = conv.clone(), h.clone()
+    eager = [m2.mamba2_step(x, ec, eh, *p.values(), eps) for x in zxs]
+    gc, gh, static = conv.clone(), h.clone(), zx.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        m2.mamba2_step(static, gc.clone(), gh.clone(), *p.values(), eps)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = m2.mamba2_step(static, gc, gh, *p.values(), eps)
+    gc.copy_(conv)
+    gh.copy_(h)
+    same = True
+    for x, want in zip(zxs, eager):
+        static.copy_(x)
+        graph.replay()
+        same = same and torch.equal(out, want)
+    torch.cuda.synchronize()
+    ok = same and torch.equal(gc, ec) and torch.equal(gh, eh)
+    say(f"  mamba2_step captured once, replayed {replays} times: outputs, "
+        f"window and state equal the eager calls' {ok}"
+        + ("" if ok else "  MISMATCH"))
+    return {"shape": f"CUDA graph, {replays} replays", "dtype": "bfloat16",
+            "max_abs_err": 0.0 if ok else float("nan"), "ok": ok}
+
+
+def mamba2_published_launches():
+    """The published Zamba2-2.7B block (54 layers, bf16, full width) built
+    from the benchmark's configuration: one eager decode step after a
+    16-token prefill issues ``mamba2_step`` once a layer, each call its
+    two launches."""
+    import torch
+    from portbench.harness import arch_config
+    from repro_torch.kernels import mamba2_step as m2
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import build_model
+    free_cuda()
+    m = json.loads((ROOT / "portbench" / "configs" / "zamba2-2.7b.json")
+                   .read_text())["model"]
+    cfg = arch_config(m)
+    model = build_model(cfg, "cuda")
+    with torch.no_grad():
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        toks = torch.randint(0, cfg.vocab, (1, 16), device="cuda")
+        cache = model.init_cache(params, {"tokens": toks}, 1, 32)
+        lg, cache = model.prefill(params, {"tokens": toks}, cache)
+        ops.reset_launch_counts()
+        model.decode_step(params, cache, lg.argmax(-1)[:, None],
+                          torch.full((1,), 16, dtype=torch.int32,
+                                     device="cuda"))
+        torch.cuda.synchronize()
+    n = ops.launch_counts()["mamba2_step"]
+    want = cfg.n_layers * m2.LAUNCHES_PER_CALL
+    say(f"  mamba2_step launches in one eager decode step of the published "
+        f"block ({cfg.n_layers} layers): {n} (want {want})")
+    del model, params, cache
+    free_cuda()
+    return {"shape": f"published block, {cfg.n_layers} layers, one eager "
+            "decode step", "dtype": "bfloat16", "launches": n,
+            "max_abs_err": 0.0, "ok": n == want}
+
+
+def mamba2_checks():
+    """Phase 3 (c): the Mamba2 step kernel."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    out = [mamba2_check(B, dname, dtype, gen,
+                        timed=(B == 1 and dname == "bfloat16"))
+           for dname, dtype in (("float32", torch.float32),
+                                ("bfloat16", torch.bfloat16))
+           for B in (1, 4)]
+    out += [mamba2_steps_check(gen), mamba2_graph_check(gen),
+            mamba2_published_launches()]
+    bad = [(r["shape"], r["dtype"]) for r in out if not r["ok"]]
+    require(not bad, f"mamba2_step disagrees: {bad}")
+    return out
+
+
 def kernel_phase():
     import torch
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1710,6 +1925,11 @@ def full_width_phase(runs):
                     f"{arch}: flash_decode launched "
                     f"{launches['flash_decode']} times, expected >= "
                     f"{n * (N - 1) * attn}")
+        if cfg.hybrid is not None:      # each Mamba2 layer's decode step
+            want = n * (N - 1) * cfg.n_layers * 2
+            require(launches["mamba2_step"] >= want,
+                    f"{arch}: mamba2_step's kernels ran "
+                    f"{launches['mamba2_step']} times, expected >= {want}")
         say(f"  {arch} where a serving step's time goes (torch.profiler):")
         profile_phase(model, params, steps=4, top=8)
         if cfg.attention == "mla":
@@ -3210,8 +3430,9 @@ def main() -> int:
             f"{torch.cuda.device_count()}")
 
         from repro_torch.kernels import build
-        secs = build.build(KERNELS)
-        say(f"phase 2 build: {len(KERNELS)} kernels with nvcc in "
+        secs = build.build([*KERNELS, *OWN_KERNELS])
+        say(f"phase 2 build: {len(KERNELS) + len(OWN_KERNELS)} kernels "
+            f"with nvcc in "
             f"{secs:.1f}s ({' '.join(build.NVCC_FLAGS)})")
         say(f"  chacha20 SASS (one block a thread, fully unrolled): "
             f"{chacha20_sass()}")
@@ -3220,6 +3441,7 @@ def main() -> int:
         say("phase 3 kernels against their plain versions:")
         results = kernel_phase()
         seq_launches = seq_decode_check()
+        results["mamba2_step"] = mamba2_checks()
         say("phase 3 kernels: all agree")
 
         say("phase 4 serving:")

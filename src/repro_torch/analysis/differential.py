@@ -10,7 +10,8 @@ products (``mm``, ``bmm``, convolutions, attention) and nothing
 elementwise, so matmul-dominated entrypoints agree within the tolerance
 and pointwise or integer work diverges. For the port's attention kernels
 the counter is given formulas here, in the form of its own
-``sdpa_flop_count``; ``chacha20`` gets none, since its integer work is
+``sdpa_flop_count``, and for the Mamba2 step the products its plain
+version counts as ``bmm``s; ``chacha20`` gets none, since its integer work is
 what the counter does not count (``calibrate.KNOWN_DIVERGENT``).
 
 Bytes are not compared: the counter counts none.
@@ -52,6 +53,15 @@ def _flash_decode_flop(q_shape, k_shape, v_shape, *args, out_shape=None,
     s_k, d_v = k_shape[2], v_shape[3]
     return (bmm_flop((b * h, 1, d_q), (b * h, d_q, s_k))
             + bmm_flop((b * h, 1, s_k), (b * h, s_k, d_v)))
+
+
+@register_flop_formula(torch.ops.repro_torch.mamba2_step)
+def _mamba2_step_flop(zx_shape, conv_shape, h_shape, conv_w_shape, *args,
+                      out_shape=None, **kwargs) -> int:
+    """The Mamba2 step's three products as the counter counts the plain
+    path's ``bmm``s: the K-tap conv, the outer product (x dt) B^T and
+    C . h (``library.mamba2_step_bmm_flops``)."""
+    return int(library.mamba2_step_bmm_flops(h_shape, conv_w_shape))
 
 
 @dataclass

@@ -15,8 +15,10 @@ device of the tensors it is given:
 its backward is plain PyTorch (``kernels.attention_grad``), as the TPU
 kernel has none; training runs the kernel forward on the card and that
 backward. ``flash_decode`` (and its sibling ``flash_decode_lse``, the same
-launch with each row's log-sum-exp as a second output) and
-``chacha20_keystream`` have no training caller and no autograd.
+launch with each row's log-sum-exp as a second output),
+``chacha20_keystream`` and ``mamba2_step`` (a Mamba2 layer's decode step,
+which writes the layer's conv window and state in place on every device)
+have no training caller and no autograd.
 
 Nothing here catches a failure and falls back. Because each kernel is one
 op, a ``TorchDispatchMode`` (``repro_torch.analysis.regions.segment``) sees
@@ -36,6 +38,7 @@ from repro_torch.kernels import attention_grad
 from repro_torch.kernels import chacha20 as _cc
 from repro_torch.kernels import decode_attention as _fd
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mamba2_step as _m2
 from repro_torch.kernels import ref
 
 
@@ -152,6 +155,33 @@ def _(key, nonce, counter0, n_blocks):
     return torch.empty((n_blocks, 16), dtype=torch.uint32, device=key.device)
 
 
+# ----------------------------------------------------------- mamba2 step
+
+
+@torch.library.custom_op("repro_torch::mamba2_step",
+                         mutates_args=("conv", "h"), device_types="cuda")
+def mamba2_step(zx: torch.Tensor, conv: torch.Tensor, h: torch.Tensor,
+                conv_w: torch.Tensor, conv_b: torch.Tensor,
+                dt_bias: torch.Tensor, A_log: torch.Tensor, D: torch.Tensor,
+                out_norm: torch.Tensor, eps: float) -> torch.Tensor:
+    """zx [B, 2 d_in + 2 G N + nh], the window ``conv`` [B, K-1, conv_ch]
+    and state ``h`` [B, nh, hd, N] (fp32, updated in place) -> y [B, d_in]
+    in ``zx.dtype``: the CUDA kernel."""
+    return _m2.mamba2_step(zx, conv, h, conv_w, conv_b, dt_bias, A_log, D,
+                           out_norm, eps)
+
+
+@mamba2_step.register_kernel("cpu")
+def _(zx, conv, h, conv_w, conv_b, dt_bias, A_log, D, out_norm, eps):
+    return ref.mamba2_step_ref(zx, conv, h, conv_w, conv_b, dt_bias, A_log,
+                               D, out_norm, eps)
+
+
+@mamba2_step.register_fake
+def _(zx, conv, h, conv_w, conv_b, dt_bias, A_log, D, out_norm, eps):
+    return zx.new_empty((zx.shape[0], h.shape[1] * h.shape[2]))
+
+
 # ------------------------------------------------- static flop counts
 
 # ChaCha20 ops per block as the reference writes them: 10 double rounds x
@@ -185,10 +215,47 @@ def _chacha20_flops(key, nonce, counter0, n_blocks):
     return 0.0, float(CHACHA20_OPS_PER_BLOCK * n_blocks)
 
 
+def mamba2_step_bmm_flops(h_shape, conv_w_shape) -> float:
+    """The Mamba2 step's products as the plain path's ``bmm``s count them,
+    from the shapes of the state h [B, nh, hd, N] and conv_w [K, conv_ch]:
+    the K-tap conv over B rows of conv_ch channels, the outer product
+    (x dt) B^T with its contraction of 1 and C . h, each 2 B nh hd N."""
+    Bsz, nh, hd, N = h_shape
+    K, conv_ch = conv_w_shape
+    return 2.0 * Bsz * K * conv_ch + 4.0 * Bsz * nh * hd * N
+
+
+def _mamba2_step_flops(zx, conv, h, conv_w, conv_b, dt_bias, A_log, D,
+                       out_norm, eps):
+    """The products (``mamba2_step_bmm_flops``), and the total the cost
+    model gives the plain path's op sequence (``ref.mamba2_step_ref``):
+    the products plus one flop per output element of every other op that
+    does arithmetic, each cast to fp32 and back counted where the dtypes
+    differ, as that sequence issues them."""
+    Bsz, nh, hd, N = h.shape
+    K, conv_ch = conv_w.shape
+    d_in = nh * hd
+    st, mx = Bsz * nh * hd * N, mamba2_step_bmm_flops(h.shape, conv_w.shape)
+    act = zx.dtype != torch.float32
+    wgt = conv_w.dtype != torch.float32
+    ew = (Bsz * conv_ch * (2 + act)            # cat, its cast, silu
+          + Bsz * K * conv_ch                  # the window's cat
+          + (K + 1) * conv_ch * wgt            # conv_w, conv_b cast
+          + Bsz * conv_ch                      # the bias's add
+          + Bsz * nh * (4 + act) + 2 * nh      # dt, softplus, dA; exp, neg
+          + 2 * st                             # dA h, + the product
+          + 3 * Bsz * d_in                     # x dt, D x, + D x
+          + Bsz * d_in * (5 + 4 * act)         # the gate, the norm, 4 casts
+          + d_in * wgt                         # out_norm cast
+          + 3 * Bsz)                           # mean, + eps, rsqrt
+    return mx, mx + float(ew)
+
+
 # op name -> fn(*op args) -> (tensor-core flops, total flops)
 KERNEL_FLOPS = {
     "repro_torch::flash_attention": _attention_flops,
     "repro_torch::flash_decode": _decode_flops,
     "repro_torch::flash_decode_lse": _decode_flops,
     "repro_torch::chacha20_keystream": _chacha20_flops,
+    "repro_torch::mamba2_step": _mamba2_step_flops,
 }

@@ -16,9 +16,10 @@ from repro_torch.kernels import chacha20 as _cc
 from repro_torch.kernels import decode_attention as _fd
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import library
+from repro_torch.kernels import mamba2_step as _m2
 
 KERNEL_MODULES = {"flash_attention": _fa, "flash_decode": _fd,
-                  "chacha20": _cc}
+                  "chacha20": _cc, "mamba2_step": _m2}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -69,6 +70,19 @@ def chacha20_encrypt(data_u32: torch.Tensor, key: torch.Tensor,
         torch.uint32)
 
 
+def mamba2_step(zx: torch.Tensor, conv: torch.Tensor, h: torch.Tensor,
+                p: dict, eps: float) -> torch.Tensor:
+    """One Mamba2 decode step between the layer's projections: zx
+    [B, 2 d_in + 2 G N + nh] (the input projection's output) -> the gated,
+    normalised y [B, d_in] in ``zx.dtype``, with the conv window ``conv``
+    [B, K-1, conv_ch] and the state ``h`` [B, nh, hd, N] (fp32) written in
+    place. ``p`` holds the layer's ``conv_w``, ``conv_b``, ``dt_bias``,
+    ``A_log``, ``D`` and ``out_norm``."""
+    return library.mamba2_step(zx, conv, h, p["conv_w"], p["conv_b"],
+                               p["dt_bias"], p["A_log"], p["D"],
+                               p["out_norm"], float(eps))
+
+
 def launch_counts() -> dict:
     """Kernel launches per kernel since the last reset: the wrappers'
     counters ``kernels.<name>.launches`` (``repro_torch.obs``)."""
@@ -81,5 +95,5 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["chacha20_encrypt", "chacha20_keystream", "flash_attention",
-           "flash_decode", "flash_decode_lse", "launch_counts",
+           "flash_decode", "flash_decode_lse", "launch_counts", "mamba2_step",
            "reset_launch_counts"]

@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the port's kernels (port of ``repro.kernels.ref``).
 
 The attention versions run in fp32 math and cast the result to
-``q.dtype``; the ChaCha20 version is bit-exact 32-bit integer arithmetic.
+``q.dtype``; the ChaCha20 version is bit-exact 32-bit integer arithmetic;
+the Mamba2 decode step is the op sequence the port's ``mamba2_decode``
+ran before it had a kernel.
 The ``"cpu"`` registrations of the port's custom ops
 (``repro_torch.kernels.library``) call them, and the chip checks hold each
 CUDA kernel against them on the same inputs.
@@ -11,6 +13,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -165,3 +168,44 @@ def decode_attention_split_ref(q, k, v, lengths, *, chunk: int,
     o = (acc * w[..., None]).sum(-2) / (
         (p.sum(-1) * w).sum(-1)[..., None].clamp_min(1e-30))
     return o.reshape(B, H, D).to(q.dtype)
+
+
+# ------------------------------------------------------- mamba2 step
+
+
+def mamba2_step_ref(zx, conv, h, conv_w, conv_b, dt_bias, A_log, D, out_norm,
+                    eps: float) -> torch.Tensor:
+    """One Mamba2 decode step between the layer's projections, as plain
+    ops: zx [B, 2 d_in + 2 G N + nh] (z, x, B, C, dt in the compute dtype)
+    -> the gated, normalised y [B, d_in] in that dtype. The conv window
+    ``conv`` [B, K-1, conv_ch] and the state ``h`` [B, nh, hd, N] (fp32)
+    are written in place. The conv and the SSM run in fp32; y is rounded
+    to the compute dtype before the RMSNorm, which runs in fp32."""
+    Bsz, nh, hd, N = h.shape
+    d_in = nh * hd
+    G = (conv_w.shape[1] - d_in) // (2 * N)
+    gn = G * N
+    gz, xc, Bc, Cc, dtr = torch.split(zx, [d_in, d_in, gn, gn, nh], dim=-1)
+    u = torch.cat([xc, Bc, Cc], dim=-1)                    # [B, conv_ch]
+    window = torch.cat([conv, u[:, None, :].float()], dim=1)
+    conv_out = torch.einsum("bkc,kc->bc", window, conv_w.float()) \
+        + conv_b.float()
+    xc1, Bc1, Cc1 = torch.split(F.silu(conv_out), [d_in, gn, gn], dim=-1)
+    xh = xc1.reshape(Bsz, nh, hd)
+    rep = nh // G
+    Bm = Bc1.reshape(Bsz, G, N).repeat_interleave(rep, 1)
+    Cm = Cc1.reshape(Bsz, G, N).repeat_interleave(rep, 1)
+    dtv = F.softplus(dtr.float() + dt_bias)                # [B, nh]
+    dec = torch.exp(dtv * -torch.exp(A_log))
+    # the outer product as a matrix product with a contraction of 1, as
+    # the reference's einsum is: the cost model counts it, as the
+    # reference's does, as tensor-class work
+    h_new = dec[:, :, None, None] * h + \
+        (xh * dtv[..., None])[..., :, None] @ Bm[:, :, None, :]
+    y = torch.einsum("bhn,bhpn->bhp", Cm, h_new) + D[None, :, None] * xh
+    y = (y.reshape(Bsz, d_in) * F.silu(gz.float())).to(zx.dtype)
+    yf = y.float()
+    y = yf * torch.rsqrt(yf.square().mean(-1, keepdim=True) + eps)
+    conv.copy_(window[:, 1:])
+    h.copy_(h_new)
+    return (y * out_norm.float()).to(zx.dtype)

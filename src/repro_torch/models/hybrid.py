@@ -40,7 +40,8 @@ one-to-one. Python loops over the groups and their layers replace the
 reference's nested ``scan``. The state is ``{"mamba": {"conv", "h"}}``
 stacked on ``[n_layers]`` and ``{"kv": {"k", "v"}}`` stacked on one
 leading axis of applications; prefill and decode write both in place and
-return the same dict. The shared block's attention goes through
+return the same dict (the decode step's Mamba2 kernel writes each layer's
+state where it lies). The shared block's attention goes through
 ``attention.gqa_forward`` / ``gqa_prefill`` / ``gqa_decode``, so through the
 ``flash_attention`` and ``flash_decode`` kernels on the card.
 
@@ -231,8 +232,8 @@ def hybrid_decode_step(params, states, tokens, lengths, cfg: ArchConfig,
         for i in range(g * k, (g + 1) * k):
             with obs.span("model.mamba", layer=i, phase="decode"):
                 h = apply_norm(layers[i]["norm"], x, cfg.norm)
-                y, new = mamba2_decode(layers[i]["m"], h, cfg, mstates[i])
-                _write(mstates[i], new)
+                y, _ = mamba2_decode(layers[i]["m"], h, cfg, mstates[i],
+                                     inplace=True)
                 x = x + y.to(x.dtype)
         with obs.span("model.shared", application=g, block=0,
                       phase="decode"):
@@ -358,8 +359,8 @@ def _published_run(params, tokens, cfg: ArchConfig, states=None,
                 y, new = mamba2_prefill(layers[i]["m"], hn, cfg, {"h": None})
                 _write(mstates[i], new)
             else:
-                y, new = mamba2_decode(layers[i]["m"], hn, cfg, mstates[i])
-                _write(mstates[i], new)
+                y, _ = mamba2_decode(layers[i]["m"], hn, cfg, mstates[i],
+                                     inplace=True)
             return x + y.to(x.dtype)
 
     layer = remat_fn(layer, "none" if remat == "none" else "full")

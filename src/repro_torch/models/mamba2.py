@@ -27,6 +27,11 @@ The chunked scan runs in the span ``mamba2.ssd_scan`` (``chunks``,
 ``chunk_len``). The gated norm's
 epsilon is ``SSMConfig.norm_eps``: the reference's 1e-6, or the published
 Zamba2's 1e-5.
+
+The decode step between its two projections is one custom op,
+``kernels.ops.mamba2_step``: a hand-written kernel on the card (the
+reference has no kernel for it), and on the CPU the op sequence the
+reference computes (``kernels.ref.mamba2_step_ref``).
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ import torch.nn.functional as F
 
 from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
 from repro_torch.models.layers import Draw, dt, rmsnorm
 
 
@@ -194,33 +200,18 @@ def mamba2_prefill(p, x, cfg: ArchConfig, state):
     return y, {"conv": conv_state, "h": h_fin}
 
 
-def mamba2_decode(p, x, cfg: ArchConfig, state):
+def mamba2_decode(p, x, cfg: ArchConfig, state, inplace: bool = False):
     """x [B,1,d]: one step of the recurrence. Returns (y [B,1,d], new
-    state)."""
-    s, d_in, nh, conv_ch = _dims(cfg)
+    state). Between the two projections the step is one op,
+    ``kernels.ops.mamba2_step``: the hand-written kernel on the card, its
+    plain version (``kernels.ref.mamba2_step_ref``) on the CPU. With
+    ``inplace`` the new state is ``state``'s own tensors, written in place
+    (each must be contiguous on the card); without, copies of them, and
+    ``state`` is left as it was."""
     cdt = dt(cfg.compute_dtype)
-    Bsz = x.shape[0]
-    gn = s.n_groups * s.d_state
-    gz, xc, Bc, Cc, dtr = _split_proj(p, x, cfg, cdt)
-    u = torch.cat([xc, Bc, Cc], dim=-1)[:, 0, :]           # [B, conv_ch]
-    window = torch.cat([state["conv"], u[:, None, :].float()], dim=1)
-    conv_out = torch.einsum("bkc,kc->bc", window, p["conv_w"].float()) \
-        + p["conv_b"].float()
-    xc1, Bc1, Cc1 = torch.split(F.silu(conv_out), [d_in, gn, gn], dim=-1)
-    xh = xc1.reshape(Bsz, nh, s.head_dim)
-    rep = nh // s.n_groups
-    Bm = Bc1.reshape(Bsz, s.n_groups, s.d_state).repeat_interleave(rep, 1)
-    Cm = Cc1.reshape(Bsz, s.n_groups, s.d_state).repeat_interleave(rep, 1)
-    dtv = F.softplus(dtr[:, 0].float() + p["dt_bias"])     # [B,nh]
-    A = -torch.exp(p["A_log"])
-    dec = torch.exp(dtv * A)                                # [B,nh]
-    # the outer product as a matrix product with a contraction of 1, as
-    # the reference's einsum is: the cost model then counts it, as the
-    # reference's does, as tensor-class work (torch.einsum would multiply
-    # it elementwise)
-    h = dec[:, :, None, None] * state["h"] + \
-        (xh * dtv[..., None])[..., :, None] @ Bm[:, :, None, :]
-    y = torch.einsum("bhn,bhpn->bhp", Cm, h) + p["D"][None, :, None] * xh
-    y = y.reshape(Bsz, 1, d_in) * F.silu(gz.float())
-    y = rmsnorm(y.to(cdt), p["out_norm"], s.norm_eps)
-    return y @ p["out_proj"].to(cdt), {"conv": window[:, 1:, :], "h": h}
+    zx = x.to(cdt) @ p["in_proj"].to(cdt)                  # [B,1,proj]
+    conv, h = state["conv"], state["h"]
+    if not inplace:
+        conv, h = conv.clone(), h.clone()
+    y = ops.mamba2_step(zx[:, 0], conv, h, p, cfg.ssm.norm_eps)
+    return y[:, None] @ p["out_proj"].to(cdt), {"conv": conv, "h": h}

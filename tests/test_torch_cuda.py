@@ -311,8 +311,124 @@ def test_cuda_hybrid_model_matches_cpu():
     got, want, launches = _greedy_on_card_and_cpu(cfg)
     assert launches["flash_attention"] == groups
     assert launches["flash_decode"] == 4 * groups
+    assert launches["mamba2_step"] == 4 * cfg.n_layers * 2
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+# the published Zamba2-2.7B's Mamba2 layer (80 heads of 64, d_state 64, one
+# group, a 4-tap conv), and a small one with two groups of B and C heads
+MAMBA2_SHAPES = {"published": dict(nh=80, hd=64, N=64, G=1, K=4),
+                 "groups": dict(nh=8, hd=16, N=16, G=2, K=4)}
+MAMBA2_TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _mamba2_operands(B, nh, hd, N, G, K, dtype, gen):
+    """A Mamba2 step's operands on the card: zx and the weights in
+    ``dtype``, the window, the state, dt_bias, A_log and D in fp32."""
+    d_in, cc = nh * hd, nh * hd + 2 * G * N
+
+    def rnd(*shape, scale=1.0, dt=torch.float32):
+        return (scale * torch.randn(*shape, generator=gen, device="cuda")
+                ).to(dt)
+
+    p = {"conv_w": rnd(K, cc, scale=0.3, dt=dtype),
+         "conv_b": rnd(cc, scale=0.1, dt=dtype),
+         "dt_bias": rnd(nh, scale=0.5) - 2.0,
+         "A_log": torch.log(torch.linspace(1.0, 16.0, nh, device="cuda")),
+         "D": rnd(nh), "out_norm": (rnd(d_in, scale=0.1) + 1).to(dtype)}
+    zx = rnd(B, 2 * d_in + 2 * G * N + nh, dt=dtype)
+    return zx, rnd(B, K - 1, cc, scale=0.5), rnd(B, nh, hd, N, scale=0.3), p
+
+
+def _mamba2_step_pair(zx, conv, h, p, eps=1e-5):
+    """(kernel's y, conv, h), (plain version's y, conv, h) from copies of
+    the same window and state."""
+    from repro_torch.kernels import mamba2_step as m2
+    kc, kh, pc, ph = conv.clone(), h.clone(), conv.clone(), h.clone()
+    got = m2.mamba2_step(zx, kc, kh, *p.values(), eps)
+    want = ref.mamba2_step_ref(zx, pc, ph, *p.values(), eps)
+    return (got, kc, kh), (want, pc, ph)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("shape", ["published", "groups"])
+def test_cuda_mamba2_step_matches_plain(shape, B, dtype):
+    """The Mamba2 step kernel against its plain version on the card: the
+    window bit for bit, the fp32 state within 1e-5, y within the dtype's
+    tolerance; the kernel writes the window and the state in place."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(B)
+    zx, conv, h, p = _mamba2_operands(B, **MAMBA2_SHAPES[shape],
+                                      dtype=TDT[dtype], gen=gen)
+    (got, kc, kh), (want, pc, ph) = _mamba2_step_pair(zx, conv, h, p)
+    assert got.dtype == want.dtype == TDT[dtype]
+    assert not torch.equal(kh, h) and not torch.equal(kc, conv)
+    assert torch.equal(kc, pc)
+    torch.testing.assert_close(kh, ph, rtol=0, atol=1e-5)
+    tol = MAMBA2_TOLS[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba2_step_64_steps_in_place():
+    """64 steps of the kernel on one window and state, in place, against
+    64 of the plain version, bf16 at the published shapes (B 4): every
+    step's y within 2e-2, the final state within 1e-5."""
+    from repro_torch.kernels import mamba2_step as m2
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(64)
+    zx, conv, h, p = _mamba2_operands(4, **MAMBA2_SHAPES["published"],
+                                      dtype=torch.bfloat16, gen=gen)
+    kc, kh, pc, ph = conv.clone(), h.clone(), conv.clone(), h.clone()
+    for _ in range(64):
+        zx = torch.randn(zx.shape, generator=gen, device="cuda").to(zx.dtype)
+        got = m2.mamba2_step(zx, kc, kh, *p.values(), 1e-5)
+        want = ref.mamba2_step_ref(zx, pc, ph, *p.values(), 1e-5)
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+    assert torch.equal(kc, pc)
+    torch.testing.assert_close(kh, ph, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba2_step_replays_in_a_cuda_graph():
+    """One call captured in a CUDA graph and replayed 8 times on new
+    inputs gives the eager calls' outputs and state, bit for bit; the
+    capture counts its two launches once, the replays none."""
+    from repro_torch.kernels import mamba2_step as m2
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    zx, conv, h, p = _mamba2_operands(1, **MAMBA2_SHAPES["published"],
+                                      dtype=torch.bfloat16, gen=gen)
+    zxs = [torch.randn(zx.shape, generator=gen, device="cuda").to(zx.dtype)
+           for _ in range(8)]
+    ec, eh = conv.clone(), h.clone()
+    eager = [m2.mamba2_step(z, ec, eh, *p.values(), 1e-5) for z in zxs]
+    gc, gh, static = conv.clone(), h.clone(), zx.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm up off the capture
+        m2.mamba2_step(static, gc.clone(), gh.clone(), *p.values(), 1e-5)
+    torch.cuda.current_stream().wait_stream(side)
+    ops.reset_launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = m2.mamba2_step(static, gc, gh, *p.values(), 1e-5)
+    gc.copy_(conv)
+    gh.copy_(h)
+    replayed = []
+    for z in zxs:
+        static.copy_(z)
+        graph.replay()
+        replayed.append(out.clone())
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["mamba2_step"] == m2.LAUNCHES_PER_CALL
+    for a, b in zip(replayed, eager):
+        assert torch.equal(a, b)
+    assert torch.equal(gc, ec) and torch.equal(gh, eh)
 
 
 @pytest.mark.cuda

@@ -20,6 +20,7 @@ from repro.kernels.flash_attention import flash_attention as pallas_attention
 from repro_torch.kernels import chacha20 as cc
 from repro_torch.kernels import decode_attention as fd
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba2_step as m2
 from repro_torch.kernels import ops
 
 TOLS = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
@@ -247,7 +248,8 @@ def test_causal_attention_at_unequal_lengths_is_refused():
 # ------------------------------------------------------------- dispatch
 
 
-NO_LAUNCHES = {"flash_attention": 0, "flash_decode": 0, "chacha20": 0}
+NO_LAUNCHES = {"flash_attention": 0, "flash_decode": 0, "chacha20": 0,
+               "mamba2_step": 0}
 
 
 def test_cpu_dispatch_launches_no_kernel():
@@ -257,7 +259,19 @@ def test_cpu_dispatch_launches_no_kernel():
     ops.flash_decode(tq[:, :, 0], tk, tv, torch.tensor([5], dtype=torch.int32))
     ops.chacha20_keystream(torch.zeros(8, dtype=torch.uint32),
                            torch.zeros(3, dtype=torch.uint32), 1, 4)
+    zx, conv, h, p = _mamba2_operands()
+    ops.mamba2_step(zx, conv, h, p, 1e-5)
     assert ops.launch_counts() == NO_LAUNCHES
+
+
+def _mamba2_operands(B=2, nh=4, hd=8, N=16, K=4):
+    """A Mamba2 step's operands (one group), on the CPU."""
+    cc = nh * hd + 2 * N
+    p = {"conv_w": torch.randn(K, cc), "conv_b": torch.zeros(cc),
+         "dt_bias": torch.zeros(nh), "A_log": torch.zeros(nh),
+         "D": torch.ones(nh), "out_norm": torch.ones(nh * hd)}
+    return (torch.randn(B, 2 * nh * hd + 2 * N + nh),
+            torch.zeros(B, K - 1, cc), torch.zeros(B, nh, hd, N), p)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -271,6 +285,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors only"):
         cc.keystream(torch.zeros(8, dtype=torch.uint32),
                      torch.zeros(3, dtype=torch.uint32), 1, 4)
+    zx, conv, h, p = _mamba2_operands()
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        m2.mamba2_step(zx, conv, h, *p.values(), 1e-5)
     assert ops.launch_counts() == NO_LAUNCHES
 
 

@@ -16,6 +16,7 @@ from repro.configs import get_arch as jget_arch
 from repro.models import mamba2 as jm
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_arch
+from repro_torch.kernels import ops
 from repro_torch.models import mamba2 as tm
 from repro_torch.models.layers import materialize
 
@@ -205,3 +206,142 @@ def test_stacked_init_draws_every_layer_and_keeps_leaf_dtypes():
                        layers=3)
     assert meta["dt_bias"].dtype == torch.float32
     assert meta["in_proj"].device.type == "meta"
+
+
+# ------------------------------------------- the decode step as one op
+#
+# ``mamba2_decode`` runs the step between its projections as one op,
+# ``kernels.ops.mamba2_step``: the hand-written kernel on the card, its
+# plain version (``kernels.ref.mamba2_step_ref``) here. ``_step_before`` is
+# the op sequence ``mamba2_decode`` ran before, from the input
+# projection's output zx [B,1,proj] to the output projection's input.
+
+SSM_SHAPES = {"registry": dict(nh=8, hd=16, N=16, K=4),
+              "published": dict(nh=80, hd=64, N=64, K=4)}
+
+
+def _step_before(p, zx, state, nh, hd, N, G, eps):
+    from repro_torch.models.layers import rmsnorm
+    F = torch.nn.functional
+    Bsz, d_in, gn = zx.shape[0], nh * hd, G * N
+    gz, xc, Bc, Cc, dtr = torch.split(zx, [d_in, d_in, gn, gn, nh], dim=-1)
+    u = torch.cat([xc, Bc, Cc], dim=-1)[:, 0, :]
+    window = torch.cat([state["conv"], u[:, None, :].float()], dim=1)
+    conv_out = torch.einsum("bkc,kc->bc", window, p["conv_w"].float()) \
+        + p["conv_b"].float()
+    xc1, Bc1, Cc1 = torch.split(F.silu(conv_out), [d_in, gn, gn], dim=-1)
+    xh = xc1.reshape(Bsz, nh, hd)
+    rep = nh // G
+    Bm = Bc1.reshape(Bsz, G, N).repeat_interleave(rep, 1)
+    Cm = Cc1.reshape(Bsz, G, N).repeat_interleave(rep, 1)
+    dtv = F.softplus(dtr[:, 0].float() + p["dt_bias"])
+    dec = torch.exp(dtv * -torch.exp(p["A_log"]))
+    h = dec[:, :, None, None] * state["h"] + \
+        (xh * dtv[..., None])[..., :, None] @ Bm[:, :, None, :]
+    y = torch.einsum("bhn,bhpn->bhp", Cm, h) + p["D"][None, :, None] * xh
+    y = y.reshape(Bsz, 1, d_in) * F.silu(gz.float())
+    y = rmsnorm(y.to(zx.dtype), p["out_norm"], eps)
+    return y, {"conv": window[:, 1:, :], "h": h}
+
+
+def _step_operands(Bsz, nh, hd, N, G, K, seed=0, dtype=torch.float32,
+                   wdtype=torch.float32):
+    g = torch.Generator().manual_seed(seed)
+    d_in = nh * hd
+    cc = d_in + 2 * G * N
+
+    def rnd(*shape, scale=1.0, dt=torch.float32):
+        return (scale * torch.randn(*shape, generator=g)).to(dt)
+
+    p = {"conv_w": rnd(K, cc, scale=0.2, dt=wdtype),
+         "conv_b": rnd(cc, dt=wdtype), "dt_bias": rnd(nh, scale=0.5) - 2,
+         "A_log": torch.log(torch.linspace(1.0, 16.0, nh)),
+         "D": rnd(nh), "out_norm": rnd(cc - 2 * G * N, dt=wdtype) + 1}
+    zx = rnd(Bsz, 1, 2 * d_in + 2 * G * N + nh, dt=dtype)
+    state = {"conv": rnd(Bsz, K - 1, cc, scale=0.5),
+             "h": rnd(Bsz, nh, hd, N, scale=0.3)}
+    return p, zx, state
+
+
+@pytest.mark.parametrize("shape", ["registry", "published"])
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("Bsz", [1, 3])
+def test_mamba2_step_plain_version_equals_the_ops_it_replaced(Bsz, G,
+                                                              shape):
+    """The op's plain version, at fp32, against the sequence of ops the
+    decode step ran before (within 1e-6): the output, and the window and
+    state it writes in place."""
+    d = SSM_SHAPES[shape]
+    p, zx, state = _step_operands(Bsz, G=G, **d)
+    want, new = _step_before(p, zx, state, d["nh"], d["hd"], d["N"], G,
+                             1e-5)
+    conv, h = state["conv"].clone(), state["h"].clone()
+    got = ops.mamba2_step(zx[:, 0], conv, h, p, 1e-5)
+    assert got.shape == (Bsz, d["nh"] * d["hd"])
+    tol = dict(rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(got, want[:, 0], **tol)
+    torch.testing.assert_close(conv, new["conv"], **tol)
+    torch.testing.assert_close(h, new["h"], **tol)
+
+
+@pytest.mark.parametrize("inplace", [True, False])
+def test_sixteen_decode_steps_equal_the_ops_they_replaced(inplace):
+    """16 steps of ``mamba2_decode`` with the state carried, at the
+    registry's reduced block, against the projections around the former
+    op sequence: the same outputs and final state (1e-6). In place the
+    new state is the given state's own tensors; otherwise the given state
+    is left as it was."""
+    _, tcfg = configs()
+    tp = materialize(tm.mamba2_init(tcfg), torch.Generator().manual_seed(1),
+                     torch.float32, "cpu")
+    s, d_in, nh, _ = tm._dims(tcfg)
+    rng = np.random.default_rng(7)
+    xs = torch.from_numpy(rng.standard_normal((16, 2, 1, tcfg.d_model),
+                                              dtype=np.float32))
+    st = tm.mamba2_init_state(tcfg, 2, "cpu")
+    st = {k: 0.3 * torch.randn(v.shape, generator=torch.Generator()
+                               .manual_seed(2)) for k, v in st.items()}
+    want_st = {k: v.clone() for k, v in st.items()}
+    for x in xs:
+        before = {k: v.clone() for k, v in st.items()}
+        y, new = tm.mamba2_decode(tp, x, tcfg, st, inplace=inplace)
+        zx = x @ tp["in_proj"]
+        yw, want_st = _step_before(tp, zx, want_st, nh, s.head_dim,
+                                   s.d_state, s.n_groups, s.norm_eps)
+        torch.testing.assert_close(y, yw @ tp["out_proj"], rtol=1e-6,
+                                   atol=1e-6)
+        for k in ("conv", "h"):
+            assert (new[k] is st[k]) == inplace
+            if not inplace:
+                assert torch.equal(st[k], before[k])
+        st = new
+    for k in ("conv", "h"):
+        torch.testing.assert_close(st[k], want_st[k], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("wdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba2_step_costs_what_its_plain_ops_cost(dtype, wdtype):
+    """The op's registered flops (``library.KERNEL_FLOPS``) equal the cost
+    model's count of its plain version's op sequence: the products as
+    tensor-core flops, and the total with every elementwise op and cast;
+    the flop counter's formula counts the products alone."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.analysis import differential  # noqa: F401 (formula)
+    from repro_torch.analysis.regions import fn_cost
+    from repro_torch.kernels import library, ref
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    for Bsz, G, d in ((1, 1, SSM_SHAPES["published"]),
+                      (3, 2, SSM_SHAPES["registry"])):
+        p, zx, state = _step_operands(Bsz, G=G, dtype=dts[dtype],
+                                      wdtype=dts[wdtype], **d)
+        args = (zx[:, 0], state["conv"], state["h"], p["conv_w"],
+                p["conv_b"], p["dt_bias"], p["A_log"], p["D"],
+                p["out_norm"], 1e-5)
+        plain = fn_cost(ref.mamba2_step_ref, *args)
+        op = fn_cost(library.mamba2_step, *args)
+        assert (op.mxu_flops, op.flops) == (plain.mxu_flops, plain.flops)
+        with FlopCounterMode(display=False) as fc:
+            library.mamba2_step(*args)
+        assert fc.get_total_flops() == plain.mxu_flops

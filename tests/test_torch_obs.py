@@ -172,7 +172,7 @@ def test_spans_sit_on_the_profilers_clock(served):
 def test_launch_counters_are_the_recorders():
     ops.reset_launch_counts()
     assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0,
-                                   "chacha20": 0}
+                                   "chacha20": 0, "mamba2_step": 0}
     for name, mod in ops.KERNEL_MODULES.items():
         assert mod.LAUNCHES == f"kernels.{name}.launches"
     assert not obs.RECORDER.on        # counters count with no profiler
@@ -180,7 +180,7 @@ def test_launch_counters_are_the_recorders():
     obs.count("kernels.flash_decode.launches", 2)
     obs.count("kernels.chacha20.launches")
     assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 3,
-                                   "chacha20": 1}
+                                   "chacha20": 1, "mamba2_step": 0}
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
     obs.count("kernels.flash_attention.launches")
